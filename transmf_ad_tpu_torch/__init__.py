@@ -1,0 +1,11 @@
+"""transmf_ad_tpu_torch: the PyTorch/CUDA port of transmf_ad_tpu.
+
+The JAX package `transmf_ad_tpu` is the reference this port is held
+against; this package imports `torch` and never `jax` or `flax`. Every
+Pallas kernel on a ported path is a hand-written CUDA kernel for Hopper
+(sm_90a) under `csrc/`, built with nvcc at first use (`_build.py`); each
+has a plain PyTorch version beside it, which runs only on CPU tensors.
+
+Ported so far: the eval-mode forward of the paper model `ModelAd` behind
+`serving.make_inference_fn`.
+"""

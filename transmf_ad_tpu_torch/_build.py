@@ -1,0 +1,149 @@
+"""Build, load and launch the hand-written Hopper kernels.
+
+All sources under `csrc/` compile with `nvcc` into one shared library with a
+plain C interface, which is loaded with `ctypes` (no PyTorch headers, so the
+build takes seconds). The build runs at first use, never at import, and is
+keyed by a hash of the sources and flags: an unchanged tree reuses the
+library in `_build/`. A missing `nvcc` or a failed build raises; nothing falls
+back to the plain PyTorch versions.
+
+Each kernel is described by a `Kernel`: its C entry, its argument types, the
+source it lives in, the TPU kernel it replaces, and a plain-integer count of
+its launches, which rises by one per launch and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def find_nvcc() -> str:
+    """`$CUDA_HOME/bin/nvcc`, else `nvcc` on PATH, else the toolkit's default
+    install location; raises if none exists."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates.append(DEFAULT_CUDA_HOME / "bin" / "nvcc")
+    for c in candidates:
+        if c.is_file() and os.access(c, os.X_OK):
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the Hopper "
+        "kernels of transmf_ad_tpu_torch cannot be built")
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def source_digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(build_dir: Path = BUILD_DIR) -> Path:
+    """Compile csrc/*.cu into `build_dir` unless a library for the same
+    sources exists; returns its path. The compiler's report (registers,
+    shared memory, spills per kernel) is kept beside it as a .log file."""
+    nvcc = find_nvcc()
+    build_dir.mkdir(parents=True, exist_ok=True)
+    lib = build_dir / f"libtransmf_kernels_{source_digest()}.so"
+    if lib.exists():
+        return lib
+    cu = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    lib.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"kernel build failed ({proc.returncode}):\n{log}")
+    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The built kernel library, built on first use in this process."""
+    lib = ctypes.CDLL(str(build()))
+    lib.transmf_error_string.argtypes = [ctypes.c_int]
+    lib.transmf_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# ctypes argument kinds; every pointer and the stream are c_void_p, so that
+# ctypes never passes them as 32-bit ints
+PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+@dataclasses.dataclass
+class Kernel:
+    name: str
+    entry: str  # C symbol in the library
+    argtypes: tuple  # without the trailing stream argument
+    source: str  # path in the repository
+    replaces: str  # file:line of the TPU kernel's pallas_call
+    launches: int = 0
+
+    @functools.cached_property
+    def _fn(self):
+        fn = getattr(library(), self.entry)
+        fn.argtypes = [*self.argtypes, PTR]
+        fn.restype = ctypes.c_int
+        return fn
+
+    def launch(self, device: torch.device, *args) -> None:
+        """Launch on `device`'s current stream; raise if it was refused."""
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = self._fn(*args, stream)
+        if err != 0:
+            msg = library().transmf_error_string(err).decode()
+            raise RuntimeError(f"{self.name}: launch failed: {msg} ({err})")
+        self.launches += 1
+
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> int:
+    """Validate the kernel inputs: one CUDA device, one float32 or bfloat16
+    dtype, contiguous. Returns the dtype code."""
+    t0 = tensors[0]
+    if t0.device.type != "cuda":
+        raise ValueError(f"{name}: expected CUDA tensors, got {t0.device}")
+    if t0.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {t0.dtype} not supported "
+                        "(float32 or bfloat16)")
+    for t in tensors:
+        if t.device != t0.device or t.dtype != t0.dtype:
+            raise ValueError(f"{name}: inputs must share device and dtype")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+        if t.numel() == 0:
+            raise ValueError(f"{name}: empty input")
+    return DTYPE_CODES[t0.dtype]
