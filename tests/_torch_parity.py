@@ -52,15 +52,17 @@ def volumes(seed):
     return [rng.standard_normal(SHAPE).astype(np.float32) for _ in range(2)]
 
 
-def model_ad():
+def model_ad(**overrides):
     """(JAX ModelAd with Pallas on, randomised variables, port model with
-    the same weights); test modules wrap it as a module-scoped fixture."""
+    the same weights); test modules wrap it as a module-scoped fixture.
+    `overrides` (e.g. head_dropout) go to both models."""
+    kw = dict(SMALL, **overrides)
     # the parameter tree does not depend on the volume size: initialise on
     # the smallest volume that survives the four 2x poolings
     x = jnp.zeros((1, 16, 16, 16, 1), jnp.float32)
-    v = jax.jit(j_build_model("ad", use_pallas=False, **SMALL).init)(
+    v = jax.jit(j_build_model("ad", use_pallas=False, **kw).init)(
         jax.random.key(2), x, x)
     v = randomize_bn(v, seed=4)
-    port = build_model("ad", **SMALL)
+    port = build_model("ad", **kw)
     port.load_state_dict(state_dict_from_jax(v), strict=True)
-    return j_build_model("ad", use_pallas=True, **SMALL), v, port
+    return j_build_model("ad", use_pallas=True, **kw), v, port

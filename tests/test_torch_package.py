@@ -23,6 +23,7 @@ from transmf_ad_tpu_torch.ops.flash_attention import (FLASH_MIN_KEYS,
                                                       attention_reference,
                                                       fused_attention)
 from transmf_ad_tpu_torch.serving import make_inference_fn
+from transmf_ad_tpu_torch.train import create_state, make_train_step
 
 REPO = Path(__file__).resolve().parents[1]
 SMALL = dict(dim=16, depth=1, heads=2, dim_head=8, mlp_dim=32)
@@ -62,16 +63,28 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     assert not list((tmp_path / "build").glob("*.so"))
 
 
+def _volumes(rng, b=2, shape=(19, 21, 17)):
+    return [rng.standard_normal((b, *shape)).astype(np.float32)
+            for _ in range(2)]
+
+
 def test_cpu_calls_leave_launch_counts_at_zero(rng):
+    """Serving and a train step on CPU tensors run the plain versions only."""
+    for k in KERNELS:
+        k.launches = 7
     reset_launch_counts()
+    assert all(k.launches == 0 for k in KERNELS)
     model = build_model("ad", **SMALL)
-    probs = make_inference_fn(model, "cpu")(
-        rng.standard_normal((2, 19, 21, 17)).astype(np.float32),
-        rng.standard_normal((2, 19, 21, 17)).astype(np.float32))
+    probs = make_inference_fn(model, "cpu")(*_volumes(rng))
     assert probs.shape == (2, 2)
+    mri, pet = _volumes(rng)
+    aux = make_train_step()(create_state(model, "cpu"),
+                            {"MRI": mri, "PET": pet, "label": [0, 1]})
+    assert torch.isfinite(aux["loss"])
     pooling.fused_token_pool(torch.ones(1, 3, 4), torch.ones(1, 3, 4))
     pool3d.max_pool3d_2x2(torch.ones(1, 2, 2, 2, 3))
-    assert [k.launches for k in KERNELS] == [0, 0, 0, 0]
+    assert {k.name: k.launches for k in KERNELS} == {
+        k.name: 0 for k in KERNELS}
 
 
 def test_non_cpu_tensors_never_take_the_plain_path():
@@ -85,7 +98,19 @@ def test_non_cpu_tensors_never_take_the_plain_path():
         stem.stem_conv(torch.ones(1, 4, 4, 4, **meta),
                        torch.ones(3, 3, 3, 2, **meta))
     with pytest.raises(ValueError, match="CUDA"):
-        pool3d.max_pool3d_2x2(torch.ones(1, 4, 4, 4, 2, **meta))
+        stem.stem_conv_stats(torch.ones(1, 4, 4, 4, **meta),
+                             torch.ones(3, 3, 3, 2, **meta))
+    y = torch.ones(1, 4, 4, 4, 2, **meta)
+    c2 = torch.ones(2, **meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        stem.stem_dw(torch.ones(1, 4, 4, 4, **meta), y, y, c2, c2)
+    with pytest.raises(ValueError, match="CUDA"):
+        pool3d.max_pool3d_2x2(y)
+    p = torch.ones(1, 2, 2, 2, 2, **meta)
+    for mode in ("max", "avg"):
+        with pytest.raises(ValueError, match="CUDA"):
+            pool3d.affine_act_pool_bwd(y, c2, c2, p, p, 0.01, mode, False,
+                                       False)
     q = torch.ones(1, 1, 3, 8, **meta)
     with pytest.raises(ValueError, match="CUDA"):
         fused_attention(q, q, q, 1.0)
@@ -99,13 +124,24 @@ def test_non_cpu_tensors_never_take_the_plain_path():
                                attention_reference(qc, kc, kc, 0.5))
 
 
-def test_train_mode_raises():
+def test_train_mode_raises(rng):
+    """A CPU train-mode forward runs and moves the running statistics;
+    BatchNorm refuses producer sums together with a mask."""
     model = build_model("ad", **SMALL)
-    x = torch.zeros(1, 16, 16, 16, 1)
-    with pytest.raises(NotImplementedError, match="eval"):
-        model(x, x, train=True)
-    with pytest.raises(NotImplementedError):
-        model.train()(x, x)
+    mri, pet = (torch.from_numpy(v[..., None]) for v in _volumes(rng))
+    before = {k: v.clone() for k, v in model.state_dict().items()
+              if "running" in k}
+    logits, d_mri, d_pet = model(mri, pet, train=True,
+                                 generator=torch.Generator().manual_seed(0))
+    assert logits.shape == d_mri.shape == d_pet.shape == (2, 2)
+    assert logits.requires_grad
+    moved = [k for k, v in model.state_dict().items()
+             if "running" in k and not torch.equal(v, before[k])]
+    assert len(moved) == len(before)  # every BatchNorm layer
+    bn = model.mri_cnn.conv1["1"]
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        bn(None, None, True, stats=(torch.ones(8), torch.ones(8), 2),
+           mask=torch.ones(2))
 
 
 def test_revgrad():
@@ -126,58 +162,123 @@ def cuda():
 
 
 def _cases(g):
-    """(kernel call, plain call) pairs at small odd shapes."""
+    """(kernel name, kernel call, plain call, kinds) at small odd shapes. A
+    call returns one tensor or a tuple; kinds says, per output, whether it
+    is a 'value' (elementwise tolerance) or a float32 'sum' (tolerance
+    relative to its largest magnitude: only the order of sums differs)."""
     def r(*s):
         return torch.randn(*s, generator=g, device="cuda")
 
     y, s, b = r(2, 5, 7, 9, 3), r(9 * 3), r(9 * 3)
     yc, sc, bc = r(2, 5, 7, 9, 3), r(3), r(3)
     x4, w4 = r(2, 5, 7, 37), r(3, 3, 3, 5)
+    x5, y5, g5, a5, b5 = r(2, 9, 11, 37), r(2, 9, 11, 37, 5), \
+        r(2, 9, 11, 37, 5), r(5), r(5)
     m, p = r(3, 7, 40), r(3, 7, 40)
     q, k, v = r(2, 3, 37, 24), r(2, 3, 70, 24), r(2, 3, 70, 24)
     qd, kd = r(1, 2, 5, 128), r(1, 2, 33, 128)
+    gp = r(2, 2, 3, 4, 3)
     ref = pool3d.affine_act_pool_reference
+    bwd_ref = pool3d.affine_act_pool_bwd_reference
+    one, zero = torch.ones(3, device="cuda"), torch.zeros(3, device="cuda")
+
+    def pool_bwd(t, yy, ss, bb, slope, mode, lanes, round_gi, plain):
+        pp = ref(t(yy), ss, bb, slope, mode)
+        if plain:
+            return bwd_ref(t(yy), ss, bb, pp, t(gp), slope, mode, round_gi)
+        return pool3d.affine_act_pool_bwd(t(yy), ss, bb, pp, t(gp), slope,
+                                          mode, lanes, round_gi)
+
+    bwd_cases = [(y, s, b, 0.01, "max", True, True),
+                 (yc, sc, bc, 0.2, "max", False, False),
+                 (yc, sc, bc, 0.01, "avg", False, False),
+                 (yc, one, zero, 1.0, "max", False, True),
+                 (yc, one, zero, 1.0, "avg", False, False)]
     return [
         ("token_pool", lambda t: pooling.fused_token_pool(t(m), t(p)),
-         lambda t: pooling.pool_reference(t(m), t(p))),
+         lambda t: pooling.pool_reference(t(m), t(p)), "v"),
         ("attention_fwd", lambda t: fused_attention(t(q), t(k), t(v), 0.2),
-         lambda t: attention_reference(t(q), t(k), t(v), 0.2)),
+         lambda t: attention_reference(t(q), t(k), t(v), 0.2), "v"),
         ("attention_fwd", lambda t: fused_attention(t(qd), t(kd), t(kd), 0.1),
-         lambda t: attention_reference(t(qd), t(kd), t(kd), 0.1)),
+         lambda t: attention_reference(t(qd), t(kd), t(kd), 0.1), "v"),
         ("stem_conv", lambda t: stem.stem_conv(t(x4), t(w4)),
-         lambda t: stem._conv_reference(t(x4), t(w4))),
+         lambda t: stem._conv_reference(t(x4), t(w4)), "v"),
         ("affine_act_pool",
          lambda t: pool3d.max_pool3d_2x2_affine_act(t(y), s, b, 0.01),
-         lambda t: ref(t(y), s, b, 0.01, "max")),
+         lambda t: ref(t(y), s, b, 0.01, "max"), "v"),
         ("affine_act_pool",
          lambda t: pool3d.max_pool3d_2x2_affine_act_bc(t(yc), sc, bc, 0.2),
-         lambda t: ref(t(yc), sc, bc, 0.2, "max")),
+         lambda t: ref(t(yc), sc, bc, 0.2, "max"), "v"),
         ("affine_act_pool",
          lambda t: pool3d.avg_pool3d_2x2_affine_act(t(yc), sc, bc, 0.01),
-         lambda t: ref(t(yc), sc, bc, 0.01, "avg")),
+         lambda t: ref(t(yc), sc, bc, 0.01, "avg"), "v"),
         ("affine_act_pool", lambda t: pool3d.avg_pool3d_2x2(t(yc)),
          lambda t: ref(t(yc), torch.ones_like(sc), torch.zeros_like(bc), 1.0,
-                       "avg")),
-    ]
+                       "avg"), "v"),
+        ("stem_conv_stats", lambda t: stem.stem_conv_stats(t(x5), t(w4)),
+         lambda t: stem._stem_stats_reference(t(x5), t(w4)), "vs"),
+        ("stem_dw", lambda t: stem.stem_dw(t(x5), t(y5), t(g5), a5, b5),
+         lambda t: stem.stem_dw_reference(t(x5), t(y5), t(g5), a5, b5), "s"),
+    ] + [
+        ("affine_act_pool_bwd",
+         lambda t, c=c: pool_bwd(t, *c, plain=False),
+         lambda t, c=c: pool_bwd(t, *c, plain=True), "vs")
+        for c in bwd_cases]
+
+
+def _match(out, ref, kind, dtype, what):
+    if kind == "v":
+        tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+               else dict(rtol=2 ** -7, atol=1e-4))
+    else:
+        tol = dict(rtol=0.0, atol=1e-5 * float(ref.abs().max()) + 1e-6)
+    torch.testing.assert_close(out.float(), ref.float(), **tol,
+                               msg=lambda m: f"{what}: {m}")
 
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_cuda(cuda):
-    """Each kernel against its plain version at small odd shapes; float32
-    to 1e-5 (summation order), bfloat16 to one ulp (both sides round one
-    float32 value); each call launches its kernel exactly once."""
+    """Each kernel against its plain version at small odd shapes; values in
+    float32 to 1e-5 (summation order), in bfloat16 to one ulp (both sides
+    round one float32 value); float32 sums (BN statistics, dw, d(scale),
+    d(shift)) to 1e-5 of their largest magnitude; each call launches its
+    kernel exactly once."""
     counts = {k.name: k for k in KERNELS}
-    for dtype, tol in ((torch.float32, dict(rtol=1e-5, atol=1e-5)),
-                       (torch.bfloat16, dict(rtol=2 ** -7, atol=1e-4))):
-        for name, kern, plain in _cases(cuda):
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, kern, plain, kinds in _cases(cuda):
             def t(a):
                 return a.to(dtype)
             before = counts[name].launches
             out = kern(t)
             assert counts[name].launches == before + 1, name
             torch.cuda.synchronize()
-            torch.testing.assert_close(out.float(), plain(t).float(), **tol,
-                                       msg=lambda m: f"{name} {dtype}: {m}")
+            ref = plain(t)
+            outs = out if isinstance(out, tuple) else (out,)
+            refs = ref if isinstance(ref, tuple) else (ref,)
+            for o, rf, kind in zip(outs, refs, kinds, strict=True):
+                _match(o, rf, kind, dtype, f"{name} {dtype}")
+
+
+@pytest.mark.cuda
+def test_backward_launches_kernels_on_cuda(cuda):
+    """Autograd through the pool entries and the training stem reaches K7
+    and K6 and gives the plain backward's gradients."""
+    x = torch.randn(2, 9, 11, 13, generator=cuda, device="cuda")
+    w = torch.randn(3, 3, 3, 4, generator=cuda, device="cuda")
+    grads = []
+    for dev in ("cuda", "cpu"):
+        xx, ww = x.to(dev), w.detach().to(dev).requires_grad_()
+        y, st = stem.stem_conv_stats(xx, ww)
+        s = (1.0 + st[0] / st[0].abs().max()).repeat(y.shape[3])
+        out = pool3d.max_pool3d_2x2_affine_act(y, s, torch.zeros_like(s))
+        before = {k.name: k.launches for k in KERNELS}
+        out.float().square().sum().backward()
+        after = {k.name: k.launches for k in KERNELS}
+        if dev == "cuda":
+            for name in ("stem_dw", "affine_act_pool_bwd"):
+                assert after[name] == before[name] + 1, name
+        grads.append(ww.grad.cpu())
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=1e-4)
     x = torch.randn(2, 4, 4, 4, 3, device="cuda")
     with pytest.raises(TypeError, match="dtype"):
         pool3d.max_pool3d_2x2(x.half())

@@ -1,11 +1,12 @@
 """Build, load and launch the hand-written Hopper kernels.
 
-All sources under `csrc/` compile with `nvcc` into one shared library with a
-plain C interface, which is loaded with `ctypes` (no PyTorch headers, so the
-build takes seconds). The build runs at first use, never at import, and is
-keyed by a hash of the sources and flags: an unchanged tree reuses the
-library in `_build/`. A missing `nvcc` or a failed build raises; nothing falls
-back to the plain PyTorch versions.
+Each source under `csrc/` compiles with its own `nvcc` process, all started
+together, and the objects link into one shared library with a plain C
+interface, which is loaded with `ctypes` (no PyTorch headers, so the build
+takes seconds). The build runs at first use, never at import, and is keyed
+by a hash of the sources and flags: an unchanged tree reuses the library in
+`_build/`. A missing `nvcc` or a failed build raises; nothing falls back to
+the plain PyTorch versions.
 
 Each kernel is described by a `Kernel`: its C entry, its argument types, the
 source it lives in, the TPU kernel it replaces, and a plain-integer count of
@@ -31,7 +32,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -68,24 +69,37 @@ def source_digest() -> str:
 
 def build(build_dir: Path = BUILD_DIR) -> Path:
     """Compile csrc/*.cu into `build_dir` unless a library for the same
-    sources exists; returns its path. The compiler's report (registers,
-    shared memory, spills per kernel) is kept beside it as a .log file."""
+    sources exists; returns its path. One nvcc per source, in parallel,
+    then one link. The compilers' report (registers, shared memory, spills
+    per kernel) is kept beside the library as a .log file."""
     nvcc = find_nvcc()
     build_dir.mkdir(parents=True, exist_ok=True)
     lib = build_dir / f"libtransmf_kernels_{source_digest()}.so"
     if lib.exists():
         return lib
-    cu = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    lib.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"kernel build failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
+                 str(Path(tmp) / f"{src.stem}.o")]
+                for src in sorted(CSRC_DIR.glob("*.cu"))]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        logs = [" ".join(c) + "\n" + p.communicate()[0]
+                for c, p in zip(cmds, procs)]
+        failed = [p.returncode for p in procs if p.returncode != 0]
+        so = Path(tmp) / "lib.so"
+        if not failed:
+            link = [nvcc, "-shared", "-o", str(so),
+                    *(c[c.index("-o") + 1] for c in cmds)]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            logs.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(proc.returncode)
+        log = "\n".join(logs)
+        lib.with_suffix(".log").write_text(log)
+        if failed:
+            raise RuntimeError(f"kernel build failed ({failed[0]}):\n{log}")
+        os.replace(so, lib)  # atomic: a concurrent build never sees half a file
     return lib
 
 

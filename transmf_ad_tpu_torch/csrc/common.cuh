@@ -3,8 +3,9 @@
 // Every kernel is templated on its storage type (float or __nv_bfloat16) and
 // accumulates in float. Each extern "C" entry takes raw pointers, sizes, a
 // dtype code (0 = float32, 1 = bfloat16) and the CUDA stream, launches on
-// that stream, allocates nothing, and returns cudaGetLastError() so that the
-// Python wrapper can raise on a refused launch.
+// that stream, allocates nothing (scratch comes from the wrapper), and
+// returns cudaGetLastError() so that the Python wrapper can raise on a
+// refused launch.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,5 +48,55 @@ inline int dispatch(int dtype, F f) {
 }
 
 inline int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
+// Raises a kernel's dynamic shared-memory limit above the default 48 KB when
+// it needs more (up to the H100's 227 KB); returns the CUDA status.
+template <typename K>
+inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+namespace {
+
+// Second pass of every cross-block sum: blocks write float32 partials, and
+// this kernel adds them up in a fixed order, so that BN statistics and weight
+// gradients are the same from run to run (no float atomics).
+//   out[s * ncol + j] = sum over r < rows of part[(s * rows + r) * ncol + j]
+// for each of `sets` stacked (rows, ncol) matrices. A block owns 32 columns;
+// its 32 thread rows each sum a strided subset of the rows in order, then one
+// thread per column adds the 32 row sums in order.
+constexpr int kRedCols = 32;
+constexpr int kRedRows = 32;
+
+__global__ void __launch_bounds__(kRedCols * kRedRows)
+    reduce_rows_kernel(const float* __restrict__ part, float* __restrict__ out,
+                       int64_t rows, int ncol) {
+  __shared__ float red[kRedRows][kRedCols + 1];
+  const int col = blockIdx.x * kRedCols + threadIdx.x;
+  const float* src = part + static_cast<int64_t>(blockIdx.y) * rows * ncol;
+  float s = 0.f;
+  if (col < ncol) {
+    for (int64_t r = threadIdx.y; r < rows; r += kRedRows) s += src[r * ncol + col];
+  }
+  red[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && col < ncol) {
+    float t = 0.f;
+    for (int i = 0; i < kRedRows; ++i) t += red[i][threadIdx.x];
+    out[static_cast<int64_t>(blockIdx.y) * ncol + col] = t;
+  }
+}
+
+inline void reduce_rows(const float* part, float* out, int64_t rows, int ncol,
+                        int sets, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>(ceil_div(ncol, kRedCols)),
+                  static_cast<unsigned>(sets));
+  reduce_rows_kernel<<<grid, dim3(kRedCols, kRedRows), 0, stream>>>(part, out,
+                                                                    rows, ncol);
+}
+
+}  // namespace
 
 }  // namespace transmf

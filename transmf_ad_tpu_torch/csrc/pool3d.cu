@@ -30,6 +30,7 @@ namespace transmf {
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kBwdThreads = 512;
 
 template <typename T, bool kMean>
 __global__ void __launch_bounds__(kThreads)
@@ -77,6 +78,119 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// K7, the backward of K4. One block walks whole pooled rows (b, x-pair,
+// y-pair) of the extended grid ceil(X/2) x ceil(Y/2): a row inside the pooled
+// range recomputes its 2x2x2 windows, a row on an odd x or y tail only writes
+// zeros. In a window row, thread t handles the pooled lanes j = t, t + blockDim
+// ... (j = zp*C + c), so it always owns the same two raw lanes (2zp, c) and
+// (2zp+1, c): it adds dpre*y and dpre into a per-block (2, Z*C) float32 table
+// in shared memory without races or atomics. The table goes out as the
+// block's partial; reduce_rows adds the partials in a fixed order.
+template <typename T, bool kMean, bool kRoundGi>
+__global__ void __launch_bounds__(kBwdThreads)
+    affine_act_pool_bwd_kernel(const T* __restrict__ y,
+                               const float* __restrict__ scale,
+                               const float* __restrict__ shift,
+                               const T* __restrict__ p, const T* __restrict__ g,
+                               T* __restrict__ dy, float* __restrict__ partial,
+                               int B, int X, int Y, int Z, int C, int zstride,
+                               float slope) {
+  extern __shared__ float acc[];  // [2][Z * C]: sum dpre*y, sum dpre
+  const int Xp = X / 2, Yp = Y / 2, Zp = Z / 2;
+  const int Xq = (X + 1) / 2, Yq = (Y + 1) / 2;
+  const int ZC = Z * C;
+  const int pooled = Zp * C;
+  const T zero = from_f32<T>(0.f);
+  for (int i = threadIdx.x; i < 2 * ZC; i += blockDim.x) acc[i] = 0.f;
+  __syncthreads();
+
+  const int64_t rows = static_cast<int64_t>(B) * Xq * Yq;
+  for (int64_t r = blockIdx.x; r < rows; r += gridDim.x) {
+    const int yq = static_cast<int>(r % Yq);
+    const int xq = static_cast<int>((r / Yq) % Xq);
+    const int64_t b = r / (static_cast<int64_t>(Yq) * Xq);
+    if (xq >= Xp || yq >= Yp) {  // odd x or y tail: zero gradient
+      for (int dx = 0; dx < 2; ++dx) {
+        for (int dyy = 0; dyy < 2; ++dyy) {
+          const int gx = 2 * xq + dx, gy = 2 * yq + dyy;
+          if (gx >= X || gy >= Y) continue;
+          T* o = dy + ((b * X + gx) * Y + gy) * static_cast<int64_t>(ZC);
+          for (int i = threadIdx.x; i < ZC; i += blockDim.x) o[i] = zero;
+        }
+      }
+      continue;
+    }
+    const int64_t prow = ((b * Xp + xq) * Yp + yq) * static_cast<int64_t>(pooled);
+    for (int j = threadIdx.x; j < pooled; j += blockDim.x) {
+      const int c = j % C;
+      const int zp = j / C;
+      const float gv = to_f32(g[prow + j]);
+      const float pv = kMean ? 0.f : to_f32(p[prow + j]);
+      float yv[8], pre[8];
+      bool eq[8];
+      int cnt = 0;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int dx = k >> 2, dyy = (k >> 1) & 1, dz = k & 1;
+        const int64_t off =
+            (((b * X + 2 * xq + dx) * Y + 2 * yq + dyy) * Z + 2 * zp + dz) * C + c;
+        const int ai = (2 * zp + dz) * zstride + c;
+        yv[k] = to_f32(y[off]);
+        // the forward's exact arithmetic (K4): rounded product and sum, act
+        // rounded to the storage type before the comparison
+        pre[k] = __fadd_rn(__fmul_rn(yv[k], scale[ai]), shift[ai]);
+        const float act = pre[k] >= 0.f ? pre[k] : __fmul_rn(slope, pre[k]);
+        eq[k] = kMean || to_f32(from_f32<T>(act)) == pv;
+        cnt += eq[k] ? 1 : 0;
+      }
+      float gi;
+      if (kMean) {
+        gi = to_f32(from_f32<T>(gv * 0.125f));
+      } else {
+        gi = gv / fmaxf(static_cast<float>(cnt), 1.f);
+        if (kRoundGi) gi = to_f32(from_f32<T>(gi));
+      }
+      float ds0 = 0.f, ds1 = 0.f, db0 = 0.f, db1 = 0.f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int dx = k >> 2, dyy = (k >> 1) & 1, dz = k & 1;
+        const int64_t off =
+            (((b * X + 2 * xq + dx) * Y + 2 * yq + dyy) * Z + 2 * zp + dz) * C + c;
+        const int ai = (2 * zp + dz) * zstride + c;
+        const float dzv = eq[k] ? gi : 0.f;
+        const float dpre = pre[k] >= 0.f ? dzv : __fmul_rn(dzv, slope);
+        dy[off] = from_f32<T>(__fmul_rn(dpre, scale[ai]));
+        if (dz == 0) {
+          ds0 = fmaf(dpre, yv[k], ds0);
+          db0 += dpre;
+        } else {
+          ds1 = fmaf(dpre, yv[k], ds1);
+          db1 += dpre;
+        }
+      }
+      const int lane = 2 * zp * C + c;
+      acc[lane] += ds0;
+      acc[lane + C] += ds1;
+      acc[ZC + lane] += db0;
+      acc[ZC + lane + C] += db1;
+    }
+    if (Z > 2 * Zp) {  // odd z tail of the four raw rows: zero gradient
+      for (int i = threadIdx.x; i < 4 * C; i += blockDim.x) {
+        const int k = i / C, c = i % C;
+        const int gx = 2 * xq + (k >> 1), gy = 2 * yq + (k & 1);
+        dy[(((b * X + gx) * Y + gy) * Z + Z - 1) * C + c] = zero;
+      }
+    }
+  }
+  __syncthreads();
+  float* part = partial + static_cast<int64_t>(blockIdx.x) * ZC;
+  const int64_t set = static_cast<int64_t>(gridDim.x) * ZC;
+  for (int i = threadIdx.x; i < ZC; i += blockDim.x) {
+    part[i] = acc[i];
+    part[set + i] = acc[ZC + i];
+  }
+}
+
 }  // namespace
 }  // namespace transmf
 
@@ -109,6 +223,48 @@ extern "C" int transmf_affine_act_pool(const void* y, const void* scale,
     } else {
       affine_act_pool_kernel<T, false><<<blocks, kThreads, 0, st>>>(
           yy, s, sh, o, X, Y, Z, C, Xp, Yp, Zp, zstride, slope, total);
+    }
+  });
+}
+
+// y: (B, X, Y, Z, C); scale, shift: as for transmf_affine_act_pool; p, g:
+// (B, X//2, Y//2, Z//2, C), the forward's output and its gradient in y's
+// type. Writes dy (y's shape, zero on odd tails) and dsb: float32 (2, Z*C)
+// [d(scale), d(shift)] per lane when zstride == C, (2, C) per channel when
+// zstride == 0. partial: float32 scratch of 2 * grid * Z * C, grid blocks.
+// mode 0 = max (ties split equally; round_gi rounds g/count to the storage
+// type, as the TPU lane kernel does), 1 = mean.
+extern "C" int transmf_affine_act_pool_bwd(
+    const void* y, const void* scale, const void* shift, const void* p,
+    const void* g, void* dy, void* partial, void* dsb, int B, int X, int Y,
+    int Z, int C, int zstride, float slope, int mode, int round_gi, int grid,
+    int dtype, void* stream) {
+  using namespace transmf;
+  if (B < 1 || X < 2 || Y < 2 || Z < 2 || C < 1 || grid < 1 ||
+      (mode != 0 && mode != 1) || (zstride != 0 && zstride != C)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = sizeof(float) * 2 * static_cast<size_t>(Z) * C;
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return dispatch(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    auto kernel = mode == 1 ? affine_act_pool_bwd_kernel<T, true, false>
+                  : round_gi ? affine_act_pool_bwd_kernel<T, false, true>
+                             : affine_act_pool_bwd_kernel<T, false, false>;
+    if (allow_smem(kernel, smem) != cudaSuccess) return;
+    kernel<<<grid, kBwdThreads, smem, st>>>(
+        static_cast<const T*>(y), static_cast<const float*>(scale),
+        static_cast<const float*>(shift), static_cast<const T*>(p),
+        static_cast<const T*>(g), static_cast<T*>(dy),
+        static_cast<float*>(partial), B, X, Y, Z, C, zstride, slope);
+    // lanes: rows = blocks, columns = Z*C; channels: rows = (block, z)
+    if (zstride != 0) {
+      reduce_rows(static_cast<const float*>(partial), static_cast<float*>(dsb),
+                  grid, Z * C, 2, st);
+    } else {
+      reduce_rows(static_cast<const float*>(partial), static_cast<float*>(dsb),
+                  static_cast<int64_t>(grid) * Z, C, 2, st);
     }
   });
 }

@@ -14,8 +14,9 @@ _REGISTRY = {"ad": ModelAd}
 
 def build_model(name: str, dim: int = 128, depth: int = 3, heads: int = 4,
                 dropout: float = 0.0, **kw):
-    """Build a model by key with reference-default hyperparameters, in eval
-    mode (the only mode ported so far)."""
+    """Build a model by key with reference-default hyperparameters. The
+    forward's `train` argument picks eval or training mode, as in the JAX
+    package."""
     key = name.lower()
     if key not in _REGISTRY:
         raise ValueError(f"unknown or unported model {name!r}; ported: "
@@ -23,4 +24,4 @@ def build_model(name: str, dim: int = 128, depth: int = 3, heads: int = 4,
     kw.setdefault("dim_head", dim // heads)
     kw.setdefault("mlp_dim", dim * 4)
     return _REGISTRY[key](dim=dim, depth=depth, heads=heads, dropout=dropout,
-                          **kw).eval()
+                          **kw)

@@ -1,4 +1,4 @@
-"""Neural-network layers of the port (eval mode)."""
+"""Neural-network layers of the port."""
 
 from .attention import (  # noqa: F401
     Attention,
@@ -13,6 +13,7 @@ from .batchnorm import (  # noqa: F401
     ManualBN,
     bn_affine_reference,
 )
+from .dropout import Dropout, dropout  # noqa: F401
 from .blocks import (  # noqa: F401
     SNet,
     conv_bn_act,

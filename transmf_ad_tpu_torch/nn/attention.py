@@ -1,4 +1,4 @@
-"""Transformer blocks and the cross-modal fusion module, eval mode.
+"""Transformer blocks and the cross-modal fusion module.
 
 Port of transmf_ad_tpu/nn/attention.py (`FeedForward`, `Attention`,
 `Transformer`, `CrossTransformerModAvg`). Module names follow the reference
@@ -7,7 +7,8 @@ torch code (`layers.{i}.{0,1}.norm`, `.fn.to_q`, `.fn.to_kv`, `.fn.to_out.0`,
 
 Parameters stay float32; each layer computes in the dtype of its input, as
 the JAX modules do with `dtype` set: Linear casts its weights to it,
-LayerNorm normalises in float32 and casts back.
+LayerNorm normalises in float32 and casts back. Dropout acts only with
+`train=True` and draws from the `generator` passed down.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from torch import nn
 
 from ..ops import attention_core
 from ..ops.pooling import fused_token_pool
+from .dropout import Dropout
 
 
 class Linear(nn.Linear):
@@ -55,11 +57,13 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0):
         super().__init__()
         self.net = nn.Sequential(
-            Linear(dim, hidden_dim), nn.GELU(), nn.Dropout(dropout),
-            Linear(hidden_dim, dim), nn.Dropout(dropout))
+            Linear(dim, hidden_dim), nn.GELU(), Dropout(dropout),
+            Linear(hidden_dim, dim), Dropout(dropout))
 
-    def forward(self, x):
-        return self.net(x)
+    def forward(self, x, train: bool = False, generator=None):
+        lin1, gelu, drop1, lin2, drop2 = self.net
+        x = drop1(gelu(lin1(x)), train, generator)
+        return drop2(lin2(x), train, generator)
 
 
 class Attention(nn.Module):
@@ -74,9 +78,9 @@ class Attention(nn.Module):
         self.heads, self.dim_head = heads, dim_head
         self.to_q = Linear(dim, inner, bias=False)
         self.to_kv = Linear(dim, 2 * inner, bias=False)
-        self.to_out = nn.Sequential(Linear(inner, dim), nn.Dropout(dropout))
+        self.to_out = nn.Sequential(Linear(inner, dim), Dropout(dropout))
 
-    def forward(self, x, context=None):
+    def forward(self, x, context=None, train: bool = False, generator=None):
         ctx = x if context is None else context
         b, n, _ = x.shape
         m = ctx.shape[1]
@@ -89,7 +93,9 @@ class Attention(nn.Module):
         out = attention_core(heads_first(self.to_q(x), n),
                              heads_first(k, m), heads_first(v, m),
                              scale=dh ** -0.5)
-        return self.to_out(out.transpose(1, 2).reshape(b, n, h * dh))
+        proj, drop = self.to_out
+        return drop(proj(out.transpose(1, 2).reshape(b, n, h * dh)), train,
+                    generator)
 
 
 class Transformer(nn.Module):
@@ -107,10 +113,11 @@ class Transformer(nn.Module):
             ]) for _ in range(depth))
         self.norm = LayerNorm(dim)
 
-    def forward(self, x, context=None):
+    def forward(self, x, context=None, train: bool = False, generator=None):
+        kw = dict(train=train, generator=generator)
         for attn, ff in self.layers:
-            x = attn(x, context=context) + x
-            x = ff(x) + x
+            x = attn(x, context=context, **kw) + x
+            x = ff(x, **kw) + x
         return self.norm(x)
 
 
@@ -129,8 +136,9 @@ class CrossTransformerModAvg(nn.Module):
                 Transformer(dim, 1, heads, dim_head, mlp_dim, dropout),
             ]) for _ in range(depth))
 
-    def forward(self, mri, pet):
+    def forward(self, mri, pet, train: bool = False, generator=None):
+        kw = dict(train=train, generator=generator)
         for mri_enc, pet_enc in self.layers:
-            mri = mri_enc(mri, context=pet) + mri
-            pet = pet_enc(pet, context=mri) + pet
+            mri = mri_enc(mri, context=pet, **kw) + mri
+            pet = pet_enc(pet, context=mri, **kw) + pet
         return fused_token_pool(mri, pet)
