@@ -1,14 +1,19 @@
 """Where the time of one full-width ModelAd train step goes on one GPU.
 
-    python3 profile_train.py
+    python3 profile_train.py [--batch 8] [--volume 91 109 91]
+    python3 profile_train.py --batch 6 --volume 182 218 182 [--serving]
 
-The train step of `chip_smoke.py`'s train phase (batch 8, 91x109x91, bf16,
-augmentation on, Adam), and each of its parts run alone. Per part: wall ms
+The train step of `chip_smoke.py`'s train phases (bf16, augmentation on,
+Adam; batch 8 at 91x109x91 by default, batch 6 at 182x218x182 for the
+full-resolution step), and each of its parts run alone. Per part: wall ms
 (median of 7 after a warm-up, host clock around a synchronised call) and
 device ms (torch.profiler: the union of device-event intervals over 3 calls,
-divided by 3). Then the largest device kernels of 3 profiled steps and the
-kernel launches per step. Needs a CUDA device.
+divided by 3). Then the largest device kernels of 3 profiled steps, the
+kernel launches per step and the peak device memory of a step. With
+--serving, the same for one serving request of that batch and volume.
+Needs a CUDA device.
 """
+import argparse
 import json
 import subprocess
 import time
@@ -21,6 +26,7 @@ import chip_smoke as cs
 from transmf_ad_tpu_torch.data.transforms import AugmentConfig
 from transmf_ad_tpu_torch.models import build_model
 from transmf_ad_tpu_torch.nn.blocks import global_avg_pool, tokens_from_volume
+from transmf_ad_tpu_torch.serving import make_inference_fn
 from transmf_ad_tpu_torch.train import create_state, make_train_step
 from transmf_ad_tpu_torch.train.steps import _prep_inputs
 from transmf_ad_tpu_torch.utils.weights import init_weights
@@ -30,7 +36,14 @@ torch.backends.cudnn.allow_tf32 = False
 print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                       "--format=csv,noheader"], capture_output=True,
                      text=True).stdout.strip())
-B, V = 8, (91, 109, 91)
+parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+parser.add_argument("--batch", type=int, default=8)
+parser.add_argument("--volume", type=int, nargs=3, default=(91, 109, 91))
+parser.add_argument("--serving", action="store_true",
+                    help="also profile one serving request")
+args = parser.parse_args()
+B, V = args.batch, tuple(args.volume)
+print(f"batch {B}, volume {V}")
 g = torch.Generator().manual_seed(3)
 model = build_model("ad")
 init_weights(model, g)
@@ -114,17 +127,29 @@ parts = {
         lambda: model.fc_cls(fused, True, None, gen).float().sum().backward(),
     "Adam step": lambda: state.optimizer.step(),
 }
+if args.serving:
+    serving_model = build_model("ad")
+    init_weights(serving_model, g)
+    cs.randomize_bn(serving_model, g)
+    infer = make_inference_fn(serving_model, "cuda", "auto")
+    host = [np.random.default_rng(0).random((B, *V), dtype=np.float32)
+            for _ in range(2)]
+    parts["serving request (host arrays in, probabilities out)"] = \
+        lambda: infer(*host)
+    parts["serving: host to device copy and cast"] = lambda: [
+        torch.as_tensor(v).to(device="cuda", dtype=torch.bfloat16)
+        for v in host]
 res = {k: measure(fn) for k, fn in parts.items()}
 for k, v in res.items():
     print(f"{k:50s} wall {v['wall_ms']:9.3f} ms  device {v['device_ms']:9.3f}"
           f" ms", flush=True)
 print(json.dumps(res))
 
-with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-    for _ in range(3):
-        step(state, batch)
-    torch.cuda.synchronize()
-ka = prof.key_averages()
+torch.cuda.reset_peak_memory_stats()
+step(state, batch)
+torch.cuda.synchronize()
+print(f"peak device memory of a step "
+      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
 def dev_time(k):
@@ -132,12 +157,25 @@ def dev_time(k):
                    getattr(k, "self_cuda_time_total", 0))
 
 
-rows = sorted([k for k in ka if k.device_type == torch.autograd.DeviceType.CUDA
-               and dev_time(k) > 0], key=lambda k: -dev_time(k))[:25]
-print("device kernels, ms per step (3 profiled steps):")
-for k in rows:
-    print(f"{dev_time(k) / 1e3 / 3:9.3f} ms/step x{k.count // 3:5d}  "
-          f"{k.key[:110]}")
-launch = [k for k in ka if k.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                     "cudaLaunchKernelExC")]
-print("launch calls per step", sum(k.count for k in launch) / 3)
+def largest_kernels(fn, what):
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    rows = sorted([k for k in ka
+                   if k.device_type == torch.autograd.DeviceType.CUDA
+                   and dev_time(k) > 0], key=lambda k: -dev_time(k))[:25]
+    print(f"device kernels, ms per {what} (3 profiled):")
+    for k in rows:
+        print(f"{dev_time(k) / 1e3 / 3:9.3f} ms x{k.count // 3:5d}  "
+              f"{k.key[:110]}")
+    launch = [k for k in ka if k.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                         "cudaLaunchKernelExC")]
+    print(f"launch calls per {what}", sum(k.count for k in launch) / 3)
+
+
+largest_kernels(lambda: step(state, batch), "step")
+if args.serving:
+    largest_kernels(lambda: infer(*host), "request")

@@ -6,6 +6,7 @@ GPU and without jax:
     python -m pytest tests/test_torch_package.py --noconftest -m cuda -q
 """
 
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -17,8 +18,9 @@ import torch
 from transmf_ad_tpu_torch import _build
 from transmf_ad_tpu_torch.models import build_model
 from transmf_ad_tpu_torch.nn.grl import revgrad
-from transmf_ad_tpu_torch.ops import (KERNELS, attention_core, pool3d,
-                                      pooling, reset_launch_counts, stem)
+from transmf_ad_tpu_torch.ops import (KERNELS, attention_core, band_conv,
+                                      pool3d, pooling, reset_launch_counts,
+                                      stem)
 from transmf_ad_tpu_torch.ops.flash_attention import (FLASH_MIN_KEYS,
                                                       attention_reference,
                                                       fused_attention)
@@ -63,6 +65,14 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     assert not list((tmp_path / "build").glob("*.so"))
 
 
+@pytest.mark.parametrize("entry", [make_inference_fn, create_state])
+def test_entry_points_default_to_the_card(entry):
+    """Every public entry point that takes a device runs on the card unless
+    the caller asks for the CPU."""
+    default = inspect.signature(entry).parameters["device"].default
+    assert torch.device(default).type == "cuda"
+
+
 def _volumes(rng, b=2, shape=(19, 21, 17)):
     return [rng.standard_normal((b, *shape)).astype(np.float32)
             for _ in range(2)]
@@ -74,13 +84,14 @@ def test_cpu_calls_leave_launch_counts_at_zero(rng):
         k.launches = 7
     reset_launch_counts()
     assert all(k.launches == 0 for k in KERNELS)
-    model = build_model("ad", **SMALL)
-    probs = make_inference_fn(model, "cpu")(*_volumes(rng))
-    assert probs.shape == (2, 2)
-    mri, pet = _volumes(rng)
-    aux = make_train_step()(create_state(model, "cpu"),
-                            {"MRI": mri, "PET": pet, "label": [0, 1]})
-    assert torch.isfinite(aux["loss"])
+    for kw in ({}, {"band_min_voxels": 0}):
+        model = build_model("ad", **SMALL, **kw)
+        probs = make_inference_fn(model, "cpu")(*_volumes(rng))
+        assert probs.shape == (2, 2)
+        mri, pet = _volumes(rng)
+        aux = make_train_step()(create_state(model, "cpu"),
+                                {"MRI": mri, "PET": pet, "label": [0, 1]})
+        assert torch.isfinite(aux["loss"])
     pooling.fused_token_pool(torch.ones(1, 3, 4), torch.ones(1, 3, 4))
     pool3d.max_pool3d_2x2(torch.ones(1, 2, 2, 2, 3))
     assert {k.name: k.launches for k in KERNELS} == {
@@ -106,6 +117,17 @@ def test_non_cpu_tensors_never_take_the_plain_path():
         stem.stem_dw(torch.ones(1, 4, 4, 4, **meta), y, y, c2, c2)
     with pytest.raises(ValueError, match="CUDA"):
         pool3d.max_pool3d_2x2(y)
+    w5 = torch.ones(3, 3, 3, 2, 3, **meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        band_conv.band_conv3d(y, w5)
+    with pytest.raises(ValueError, match="CUDA"):
+        band_conv.band_conv3d_stats(y, w5)
+    y3 = torch.ones(1, 4, 4, 4, 3, **meta)
+    c3 = torch.ones(3, **meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        band_conv.band_dw(y, y3)
+    with pytest.raises(ValueError, match="CUDA"):
+        band_conv.band_dw(y, y3, y3, c3, c3)
     p = torch.ones(1, 2, 2, 2, 2, **meta)
     for mode in ("max", "avg"):
         with pytest.raises(ValueError, match="CUDA"):
@@ -178,6 +200,13 @@ def _cases(g):
     q, k, v = r(2, 3, 37, 24), r(2, 3, 70, 24), r(2, 3, 70, 24)
     qd, kd = r(1, 2, 5, 128), r(1, 2, 33, 128)
     gp = r(2, 2, 3, 4, 3)
+    # band conv: odd channel counts (3 -> 5), then more input channels than
+    # one chunk and more output channels than one block (40 -> 70)
+    xb, wb, gb, ab, bb = r(2, 5, 7, 19, 3), 0.2 * r(3, 3, 3, 3, 5), \
+        r(2, 5, 7, 19, 5), r(5), 0.1 * r(5)
+    xw, ww, gw, aw, bw = r(1, 3, 18, 17, 40), 0.1 * r(3, 3, 3, 40, 70), \
+        r(1, 3, 18, 17, 70), r(70), 0.1 * r(70)
+    band = band_conv
     ref = pool3d.affine_act_pool_reference
     bwd_ref = pool3d.affine_act_pool_bwd_reference
     one, zero = torch.ones(3, device="cuda"), torch.zeros(3, device="cuda")
@@ -219,6 +248,28 @@ def _cases(g):
          lambda t: stem._stem_stats_reference(t(x5), t(w4)), "vs"),
         ("stem_dw", lambda t: stem.stem_dw(t(x5), t(y5), t(g5), a5, b5),
          lambda t: stem.stem_dw_reference(t(x5), t(y5), t(g5), a5, b5), "s"),
+    ] + [
+        case for x_, w_, g_, a_, b_ in ((xb, wb, gb, ab, bb),
+                                        (xw, ww, gw, aw, bw))
+        for case in (
+            ("band_conv",
+             lambda t, x_=x_, w_=w_: band._band_forward(t(x_), t(w_), False),
+             lambda t, x_=x_, w_=w_: band.band_conv_reference(t(x_), t(w_)),
+             "v"),
+            ("band_conv",
+             lambda t, x_=x_, w_=w_: band._band_forward(t(x_), t(w_), True),
+             lambda t, x_=x_, w_=w_: band.band_conv_stats_reference(
+                 t(x_), t(w_)),
+             "vs"),
+            ("band_dw",
+             lambda t, x_=x_, g_=g_: band.band_dw(t(x_), t(g_)),
+             lambda t, x_=x_, g_=g_: band.band_dw_reference(t(x_), t(g_)),
+             "s"),
+            ("band_dw",
+             lambda t, x_=x_, g_=g_, a_=a_, b_=b_: band.band_dw(
+                 t(x_), t(g_), t(g_.flip(1)), a_, b_),
+             lambda t, x_=x_, g_=g_, a_=a_, b_=b_: band.band_dw_reference(
+                 t(x_), t(g_), t(g_.flip(1)), a_, b_), "s"))
     ] + [
         ("affine_act_pool_bwd",
          lambda t, c=c: pool_bwd(t, *c, plain=False),
@@ -279,6 +330,30 @@ def test_backward_launches_kernels_on_cuda(cuda):
                 assert after[name] == before[name] + 1, name
         grads.append(ww.grad.cpu())
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=1e-4)
+    # the band conv: forward K8 (with and without the sums), backward K8 for
+    # dx and K9 for dw
+    x = torch.randn(2, 6, 7, 9, 3, generator=cuda, device="cuda")
+    w = 0.2 * torch.randn(3, 3, 3, 3, 6, generator=cuda, device="cuda")
+    for with_stats in (False, True):
+        grads = []
+        for dev in ("cuda", "cpu"):
+            xx = x.detach().to(dev).clone().requires_grad_()
+            ww = w.detach().to(dev).clone().requires_grad_()
+            before = {k.name: k.launches for k in KERNELS}
+            if with_stats:
+                y, st = band_conv.band_conv3d_stats(xx, ww)
+                loss = y.square().sum() + (st[0] * st[1]).sum() * 1e-3
+            else:
+                loss = band_conv.band_conv3d(xx, ww).square().sum()
+            loss.backward()
+            after = {k.name: k.launches for k in KERNELS}
+            if dev == "cuda":
+                assert after["band_conv"] == before["band_conv"] + 2
+                assert after["band_dw"] == before["band_dw"] + 1
+            grads.append((xx.grad.cpu(), ww.grad.cpu()))
+        for a, b in zip(*grads):
+            torch.testing.assert_close(a, b, rtol=1e-4,
+                                       atol=1e-4 * float(b.abs().max()))
     x = torch.randn(2, 4, 4, 4, 3, device="cuda")
     with pytest.raises(TypeError, match="dtype"):
         pool3d.max_pool3d_2x2(x.half())

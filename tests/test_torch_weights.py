@@ -34,9 +34,13 @@ def test_inverse_of_map_state_dict(variables):
                                           err_msg=str(k))
 
 
-def test_load_state_dict_strict(variables):
+@pytest.mark.parametrize("port_kw", [{}, {"band_min_voxels": 0}],
+                         ids=["default", "band route"])
+def test_load_state_dict_strict(variables, port_kw):
+    """The band route adds no parameters: it reads the same Conv3d
+    weights."""
     sd = state_dict_from_jax(variables)
-    port = build_model("ad", **SMALL)
+    port = build_model("ad", **SMALL, **port_kw)
     assert sd.keys() == port.state_dict().keys()
     port.load_state_dict(sd, strict=True)
     w = variables["params"]["mri_cnn"]["ConvBNAct_1"]["kernel"]  # DHWIO

@@ -6,6 +6,7 @@ Pallas kernel on a ported path is a hand-written CUDA kernel for Hopper
 (sm_90a) under `csrc/`, built with nvcc at first use (`_build.py`); each
 has a plain PyTorch version beside it, which runs only on CPU tensors.
 
-Ported so far: the eval-mode forward of the paper model `ModelAd` behind
-`serving.make_inference_fn`.
+Ported so far: the paper model `ModelAd`, its eval-mode forward behind
+`serving.make_inference_fn` and its adversarial train step behind
+`train.make_train_step`, at 91x109x91 and at 182x218x182 volumes.
 """

@@ -19,7 +19,8 @@ from torch import nn
 
 from ..nn.attention import CrossTransformerModAvg, Linear
 from ..nn.batchnorm import BatchNormMasked
-from ..nn.blocks import SNet, global_avg_pool, tokens_from_volume
+from ..nn.blocks import (BAND_MIN_VOXELS, SNet, global_avg_pool,
+                         tokens_from_volume)
 from ..nn.dropout import Dropout
 from ..nn.grl import revgrad
 
@@ -60,11 +61,12 @@ class ModelAd(nn.Module):
 
     def __init__(self, dim: int = 128, depth: int = 3, heads: int = 4,
                  dim_head: int = 32, mlp_dim: int = 512, dropout: float = 0.0,
-                 grl_alpha: float = 2.0, head_dropout: float = 0.5):
+                 grl_alpha: float = 2.0, head_dropout: float = 0.5,
+                 band_min_voxels: int = BAND_MIN_VOXELS):
         super().__init__()
         self.grl_alpha = grl_alpha
-        self.mri_cnn = SNet(dim)
-        self.pet_cnn = SNet(dim)
+        self.mri_cnn = SNet(dim, band_min_voxels)
+        self.pet_cnn = SNet(dim, band_min_voxels)
         self.D = _Discriminator(dim)
         self.fuse_transformer = CrossTransformerModAvg(
             dim, depth, heads, dim_head, mlp_dim, dropout)

@@ -9,10 +9,16 @@ LeakyReLU then fuse into the stage-end pool kernel:
   stages 2, 3  F.conv3d, then K4 max with (C,) vectors
   stage 4      F.conv3d (3^3, then 1^3), then K4 mean with (C,) vectors
 
-Blocks without a pool apply the affine + LeakyReLU unfused. The body convs
-stay `F.conv3d` with its own autograd: the JAX package leaves them to XLA at
-these shapes. In training the stem is kernel K5 (the conv plus its BatchNorm
-sums, backward K6) and the pools' backward is K7.
+Blocks without a pool apply the affine + LeakyReLU unfused. In training the
+stem is kernel K5 (the conv plus its BatchNorm sums, backward K6) and the
+pools' backward is K7.
+
+A 3^3 body conv over at least `band_min_voxels` voxels (400,000 by default:
+only the two stage-2 convs of a 182x218x182 input, at 91x109x91) takes the
+band-conv kernel K8 (`ops/band_conv.py`; in training with its BatchNorm sums,
+backward K8 and K9), and its stage-end max pool then takes the lane-vector
+entry, as in the JAX package. Below the threshold the body convs stay
+`F.conv3d` with its own autograd, where the JAX package leaves them to XLA.
 
 Parameters carry the reference sNet's torch names (`conv1.0.weight`,
 `conv1.1.running_mean`, ... `conv4.4.bias`), which
@@ -25,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.band_conv import band_conv3d, band_conv3d_stats
 from ..ops.pool3d import (avg_pool3d_2x2_affine_act,
                           max_pool3d_2x2_affine_act,
                           max_pool3d_2x2_affine_act_bc)
@@ -32,18 +39,26 @@ from ..ops.stem import stem_conv, stem_conv_stats
 from .batchnorm import ManualBN, bn_affine_reference
 
 _SLOPE = 0.01  # LeakyReLU negative slope (reference sNet)
+BAND_MIN_VOXELS = 400_000  # the JAX package's TRANSMF_BAND_CONV_MIN_VOX
 
 
 def conv_bn_act(x, conv: nn.Conv3d, bn: ManualBN, pool=None,
-                slope: float = _SLOPE, train: bool = False, bn_mask=None):
+                slope: float = _SLOPE, train: bool = False, bn_mask=None, *,
+                band_min_voxels: int):
     """ConvBNAct: conv (bias-free) -> BN -> LeakyReLU [-> 2^3 pool].
 
     x: (B, X, Y, Z, Cin) in the compute dtype; the conv weight is cast to
     it. pool: None, 'max' or 'avg'. train: BN takes batch statistics (the
-    stem kernel's sums, or mask-weighted moments when `bn_mask` (B,) is
-    given) and moves its running statistics."""
+    producer kernel's sums, or mask-weighted moments when `bn_mask` (B,) is
+    given) and moves its running statistics. band_min_voxels: a 3^3 conv
+    with Cin > 1 over at least this many voxels takes the band-conv
+    kernel."""
     w = conv.weight.to(x.dtype)
-    stem = x.shape[-1] == 1 and conv.kernel_size == (3, 3, 3)
+    cube = conv.kernel_size == (3, 3, 3)
+    stem = x.shape[-1] == 1 and cube
+    band = (not stem and cube and conv.stride == (1, 1, 1)
+            and conv.padding == (1, 1, 1)
+            and x.shape[1] * x.shape[2] * x.shape[3] >= band_min_voxels)
     stats = None
     if stem:
         # OIDHW (C, 1, 3, 3, 3) -> DHW-O (3, 3, 3, C)
@@ -53,6 +68,14 @@ def conv_bn_act(x, conv: nn.Conv3d, bn: ManualBN, pool=None,
             stats = (st[0], st[1], y.numel() // y.shape[-1])
         else:
             y = stem_conv(x[..., 0], wk)
+    elif band:
+        # OIDHW (Cout, Cin, 3, 3, 3) -> DHWIO (3, 3, 3, Cin, Cout)
+        wk = w.permute(2, 3, 4, 1, 0).contiguous()
+        if train and bn_mask is None:
+            y, st = band_conv3d_stats(x, wk)
+            stats = (st[0], st[1], y.numel() // y.shape[-1])
+        else:
+            y = band_conv3d(x, wk)
     else:
         # a channels-last-3d view in and out: F.conv3d keeps the layout, so
         # the permutes around it are views, not copies
@@ -62,7 +85,7 @@ def conv_bn_act(x, conv: nn.Conv3d, bn: ManualBN, pool=None,
     if bn_mask is not None:
         stats = None  # the producer sums cover padded duplicates too
     scale, shift = bn(y, conv.bias, train, stats, bn_mask)
-    if stem and pool == "max":
+    if (stem or band) and pool == "max":
         z = y.shape[3]
         return max_pool3d_2x2_affine_act(y, scale.repeat(z), shift.repeat(z),
                                          slope)
@@ -90,8 +113,10 @@ class SNet(nn.Module):
     """Per-modality 3D-CNN encoder: (B, X, Y, Z, 1) -> (B, X/16, Y/16, Z/16,
     dim); 91x109x91 gives the 5x6x5 = 150-token grid."""
 
-    def __init__(self, dim: int = 128):
+    def __init__(self, dim: int = 128,
+                 band_min_voxels: int = BAND_MIN_VOXELS):
         super().__init__()
+        self.band_min_voxels = band_min_voxels
         q = dim // 4
         stages = {}
         for stage, cs, bs, (ci, co), k, _ in _PLAN:
@@ -106,7 +131,8 @@ class SNet(nn.Module):
         for stage, cs, bs, _, _, pool in _PLAN:
             slots = getattr(self, stage)
             x = conv_bn_act(x, slots[cs], slots[bs], pool, train=train,
-                            bn_mask=bn_mask)
+                            bn_mask=bn_mask,
+                            band_min_voxels=self.band_min_voxels)
         return x
 
 

@@ -8,14 +8,15 @@ nn layer calls for attention.
 
 from __future__ import annotations
 
+from .band_conv import BAND_CONV, BAND_DW
 from .flash_attention import ATTENTION, FLASH_MIN_KEYS, fused_attention
 from .pool3d import AFFINE_ACT_POOL, AFFINE_ACT_POOL_BWD
 from .pooling import TOKEN_POOL
 from .stem import STEM_CONV, STEM_CONV_STATS, STEM_DW
 
-# K1-K7, in that order
+# K1-K9, in that order
 KERNELS = (TOKEN_POOL, ATTENTION, STEM_CONV, AFFINE_ACT_POOL, STEM_CONV_STATS,
-           STEM_DW, AFFINE_ACT_POOL_BWD)
+           STEM_DW, AFFINE_ACT_POOL_BWD, BAND_CONV, BAND_DW)
 
 
 def reset_launch_counts() -> None:

@@ -10,8 +10,9 @@ Port of `stem_conv` and `stem_conv_stats` from transmf_ad_tpu/ops/stem.py:
   the output gradient on the fly; the input gradient is dead in training and
   is computed in plain PyTorch only when asked for.
 
-The z-blocked full-resolution forms are still to port (ROADMAP.md Queue 2
-item 6).
+The JAX package's z-blocked full-resolution forms (`stem_conv_stats_blocked`
+and its blocked weight gradient) chunk z to fit the TPU's VMEM; K3, K5 and K6
+tile every volume alike, so the same three kernels take 182x218x182 inputs.
 """
 
 from __future__ import annotations

@@ -36,7 +36,7 @@ class TrainState:
     step: int = 0
 
 
-def create_state(model: nn.Module, device="cpu", dtype="auto", seed: int = 0,
+def create_state(model: nn.Module, device="cuda", dtype="auto", seed: int = 0,
                  **optim_kw) -> TrainState:
     """Move `model` to `device` and build its optimizer (`build_optimizer`
     keywords) and a generator seeded with `seed` on that device. dtype:
