@@ -10,18 +10,21 @@ before the final line:
             name and power limit as nvidia-smi reports them
 2. build    compile csrc/*.cu with nvcc, one process per source (timed), and
             load the library
-3. kernels  each hand-written kernel K1-K9 against its plain PyTorch version
-            on the card, float32 and bfloat16, at the shapes the serving
-            paths and the train steps give it (91x109x91 at batch 8 and
-            182x218x182 at batch 6; the plain version of a stem or pool
+3. kernels  each hand-written kernel K1-K12 against its plain PyTorch
+            version on the card, float32 and bfloat16, at the shapes the
+            serving paths and the train steps give it (91x109x91 at batch 8
+            and 182x218x182 at batch 6; the plain version of a stem or pool
             kernel at 182x218x182 runs one sample at a time, to bound its
-            float32 temporaries): max error against a stated tolerance;
+            float32 temporaries; the flash kernels K10-K12 at 1,573 queries
+            x 3,146 keys, the saved logsumexp included, and at two small odd
+            shapes): max error against a stated tolerance;
             kernel and plain
             median times from CUDA events; the kernel's bound, the larger of
             its bytes (inputs read once, outputs written once) over 3.35 TB/s
             and its operations over the card's peak for their type; and,
             where one PyTorch call computes the same function, that call's
-            time (a yardstick: nothing in the port calls it for that)
+            time (a yardstick: nothing in the port calls it for that); then
+            K2 and K10 side by side at 1,573 and 3,146 keys
 4. serving  full-width ModelAd (dim 128, depth 3, 4 heads x 32, mlp 512) in
             bfloat16, random weights and BN statistics from a seeded
             torch.Generator, answers 6 batch-8 requests of 91x109x91
@@ -50,17 +53,38 @@ before the final line:
 9. full-resolution train  the train step at batch 6, 182x218x182: 2 warm-up
             and 3 timed steps; losses finite, parameters and running
             statistics move, K5, K6, K8 and K9 launched; peak device memory
+10. full-resolution serving, transformer_res  full-width
+            ModelTransformerRes (CrossTransformer over the joint context of
+            2 x 1,573 = 3,146 keys) answers 3 batch-6 requests of 182x218x182
+            (the last 2 timed): K10 launched 6 times per request and K2
+            never; then card float32 against the CPU at 51x53x49 with the
+            flash gate lowered to 8 keys on both sides, so the check goes
+            through K10
+11. full-resolution train, transformer_res  its train step
+            (adversarial=False) at batch 6, 182x218x182: 2 warm-up and 3 timed
+            steps; losses finite, parameters move, K10, K11 and K12 each
+            launched 6 times per step and K2 never; peak device memory; then
+            the one-SGD-step check of phase 7 for transformer_res at 51x53x49
+            with the flash gate lowered, so K11 and K12 are held inside a
+            real backward
 
 The line before the last is a JSON object with one entry per kernel: `ms`,
 `plain_ms`, `bound_ms`, `bound_by` and `library_ms` belong to the bfloat16
 run at the first shape listed for the kernel, `max_abs_err` is the largest
-over all its cases, `launches` its count over the four serving and train
+over all its cases, `launches` its count over the six serving and train
 runs together, each counted from zero. The last line is
 {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --only flash_fwd flash_dq
+
+runs phases 1-3 for the named kernels alone and stops without the result
+lines: a short first run of a new kernel.
 """
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -84,6 +108,11 @@ FULL_TRAIN_WARMUP, FULL_TRAIN_STEPS = 2, 3
 HBM_RATE = 3.35e12
 PEAK = {"bfloat16": 989e12, "float32": 67e12}
 CHECK_BATCH, CHECK_VOLUME = 4, (35, 37, 33)
+# transformer_res's checks: 3 x 3 x 3 = 27 tokens a modality, 54 keys (a
+# partial query tile and two key chunks, the second partial), with the flash
+# gate lowered to FLASH_CHECK_GATE keys on the card and on the CPU
+RES_CHECK_VOLUME, FLASH_CHECK_GATE = (51, 53, 49), 8
+FLASH_SHAPE = (6, 4, 1573, 32, 3146)  # batch, heads, queries, head dim, keys
 # the train check's conditioning probe: CPU steps on inputs perturbed by a
 # relative CHECK_EPS (a few float32 ulps), and the weight of their spread
 CHECK_DRAWS, CHECK_EPS, CHECK_SLACK = 4, 1e-6, 3.0
@@ -94,6 +123,14 @@ TRAIN_KERNELS = ("token_pool", "attention_fwd", "affine_act_pool",
                  "stem_conv_stats", "stem_dw", "affine_act_pool_bwd")
 FULL_SERVING_KERNELS = SERVING_KERNELS + ("band_conv",)
 FULL_TRAIN_KERNELS = TRAIN_KERNELS + ("band_conv", "band_dw")
+# transformer_res pools its tokens with a mean (no K1) and attends over
+# 3,146 keys (K10-K12, never K2)
+RES_SERVING_KERNELS = ("stem_conv", "affine_act_pool", "band_conv",
+                       "flash_fwd")
+RES_TRAIN_KERNELS = ("affine_act_pool", "stem_conv_stats", "stem_dw",
+                     "affine_act_pool_bwd", "band_conv", "band_dw",
+                     "flash_fwd", "flash_dq", "flash_dkv")
+ATTENTION_CALLS = 6  # per forward: depth 3, one per modality
 
 
 def _median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -139,6 +176,13 @@ def _sums(rtol):
     return ("sum", rtol, 0.0)
 
 
+def _scaled(rtol, rel_atol):
+    """|kernel - plain| <= rel_atol * max |plain| + rtol * |plain|,
+    elementwise: sums of signed terms, whose error follows the terms and not
+    the (possibly cancelled) result."""
+    return ("scaled", rtol, rel_atol)
+
+
 @dataclasses.dataclass
 class Case:
     """One kernel at one shape: the kernel's wrapper and its plain version
@@ -176,17 +220,44 @@ def _by_sample(plain, batched, summed=()):
     return run
 
 
+def _crossover_labels():
+    """Labels of the four cases that show K2 and K10 side by side, by
+    kernel and key count: the queries of one modality over its own keys
+    (batch 2) and over the joint context (batch 6)."""
+    b, h, n, d, m = FLASH_SHAPE
+    return {("attention_fwd", n): f"({2 * h},{n},{d})",
+            ("flash_fwd", n): f"({2 * h},{n},{n},{d}) + lse",
+            ("attention_fwd", m): f"({b * h},{n},{m},{d})",
+            ("flash_fwd", m): f"({b * h},{n},{m},{d}) + lse"}
+
+
+CROSSOVER = _crossover_labels()
+
+
 def _kernel_cases(g):
     from torch.nn.grad import conv3d_weight
 
-    from transmf_ad_tpu_torch.ops import band_conv, pool3d, pooling, stem
+    from transmf_ad_tpu_torch.ops import (band_conv, flash_attention as fa,
+                                          pool3d, pooling, stem)
     from transmf_ad_tpu_torch.ops.flash_attention import (attention_reference,
                                                           fused_attention)
 
-    def attn(b, h, n, d):
+    def attn(b, h, n, d, m=None):
         def make(dt):
-            q, k, v = (_randn(g, b, h, n, d).to(dt) for _ in range(3))
+            q = _randn(g, b, h, n, d).to(dt)
+            k, v = (_randn(g, b, h, m or n, d).to(dt) for _ in range(2))
             return q, k, v, d ** -0.5
+        return make
+
+    def attn_bwd(b, h, n, d, m):
+        """inputs of K11 and K12: q, k, v, an output gradient, and the
+        plain forward's lse and delta = rowsum(g * out) (so both sides see
+        the same)"""
+        def make(dt):
+            q, k, v, scale = attn(b, h, n, d, m)(dt)
+            out, lse = fa.flash_fwd_reference(q, k, v, scale)
+            gg = _randn(g, b, h, n, d).to(dt)
+            return q, k, v, gg, lse, fa.flash_delta(out, gg), scale
         return make
 
     def affine(shape, lanes):
@@ -267,6 +338,12 @@ def _kernel_cases(g):
     def attn_ops(q, k, *_):
         return 4 * q.numel() * k.shape[2], "mma"
 
+    def dq_ops(q, k, *_):  # s, dp and ds k
+        return 6 * q.numel() * k.shape[2], "mma"
+
+    def dkv_ops(q, k, *_):  # s, dp, p^T g and ds^T q
+        return 8 * q.numel() * k.shape[2], "mma"
+
     def pool_ops(y, *_):
         return 4 * y.numel(), "f32"  # multiply, add, select, max or add
 
@@ -297,6 +374,13 @@ def _kernel_cases(g):
     def lib_attn(q, k, v, scale):
         return F.scaled_dot_product_attention(q, k, v, scale=scale)
 
+    def lib_attn_bwd(q, k, v, gg, lse, delta, scale):
+        """forward and backward through the library call: dq, dk and dv
+        together, the yardstick of K11 + K12 (+ K10)"""
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(q, k, v, scale=scale)
+        return torch.autograd.grad(out, (q, k, v), gg)
+
     max_ref = functools.partial(pool3d.affine_act_pool_reference, mode="max")
     avg_ref = functools.partial(pool3d.affine_act_pool_reference, mode="avg")
     exact = [_elem(0.0, 0.0)]
@@ -313,6 +397,14 @@ def _kernel_cases(g):
                                              _sums(1e-2)])
     conv_stats = conv[0] + [_sums(1e-4)], conv[1] + [_sums(1e-2)]
     dw_tol = [_sums(1e-4)], [_sums(1e-2)]
+    # K10-K12: float32 arithmetic on both sides, sums over up to 3,146
+    # signed terms in another order: 1e-4 of the output's scale; bfloat16
+    # adds the one rounding of the output (one ulp); the float32 lse 1e-5
+    # absolute
+    flash1 = [_scaled(0.0, 1e-4)], [_scaled(BF16_RTOL, 1e-4)]
+    flash2 = flash1[0] * 2, flash1[1] * 2
+    flash_fwd_tol = (flash1[0] + [_elem(0.0, 1e-5)],
+                     flash1[1] + [_elem(0.0, 1e-5)])
     stage1, stage2 = (BATCH, *VOLUME, 32), (BATCH, 45, 54, 45, 64)
     stage3, stage4 = (BATCH, 22, 27, 22, 128), (BATCH, 11, 13, 11, 128)
     # the full-resolution shapes, at the step's batch: the stem's output
@@ -332,9 +424,9 @@ def _kernel_cases(g):
         Case("attention_fwd", "(32,150,32)", fused_attention,
              attention_reference, attn(8, 4, 150, 32), *sums, attn_ops,
              lib_attn),
-        Case("attention_fwd", "(8,1573,32)", fused_attention,
-             attention_reference, attn(2, 4, 1573, 32), *sums, attn_ops,
-             lib_attn),
+        Case("attention_fwd", CROSSOVER["attention_fwd", FLASH_SHAPE[2]],
+             fused_attention, attention_reference,
+             attn(2, *FLASH_SHAPE[1:4]), *sums, attn_ops, lib_attn),
         Case("stem_conv", "(8,91,109,91)->C32", stem.stem_conv,
              stem._conv_reference, stem_in(BATCH, VOLUME), *conv, conv_ops,
              lib_stem),
@@ -399,6 +491,29 @@ def _kernel_cases(g):
              *k7("max", True, True), pool_bwd(full2, True, "max"), *bwd,
              pool_bwd_ops),
     ]
+    # K10-K12 at the joint context of a 182x218x182 pair (1,573 queries of a
+    # modality over 3,146 keys; 1,573 = 49 x 32 + 5 and 3,146 = 98 x 32 + 10
+    # give a partial tile of each kind), then a head dim off the lane grid
+    # and a single partial chunk of keys; K2 and K10 at each other's shape
+    fb, fh, fn, fd, fm = FLASH_SHAPE
+    for b, h, n, d, m in (FLASH_SHAPE, (1, 4, 37, 48, 2100),
+                          (1, 2, 300, 32, 100)):
+        shape = f"({b * h},{n},{m},{d})"
+        cases += [
+            Case("flash_fwd", shape + " + lse", fa.flash_fwd,
+                 fa.flash_fwd_reference, attn(b, h, n, d, m), *flash_fwd_tol,
+                 attn_ops, lib_attn),
+            Case("flash_dq", shape, fa.flash_dq, fa.flash_dq_reference,
+                 attn_bwd(b, h, n, d, m), *flash1, dq_ops, lib_attn_bwd),
+            Case("flash_dkv", shape, fa.flash_dkv, fa.flash_dkv_reference,
+                 attn_bwd(b, h, n, d, m), *flash2, dkv_ops, lib_attn_bwd)]
+    cases += [
+        Case("flash_fwd", CROSSOVER["flash_fwd", fn], fa.flash_fwd,
+             fa.flash_fwd_reference, attn(2, fh, fn, fd), *flash_fwd_tol,
+             attn_ops, lib_attn),
+        Case("attention_fwd", CROSSOVER["attention_fwd", fm],
+             fused_attention, attention_reference, attn(fb, fh, fn, fd, fm),
+             *sums, attn_ops, lib_attn)]
     # K8 and K9 at the stage-2 volume of a 182x218x182 input: the two convs
     # and their input gradients (Cin and Cout swapped)
     for cin, cout in ((32, 32), (32, 64), (64, 32)):
@@ -430,6 +545,8 @@ def _agree(out, ref, tol) -> bool:
     if kind == "sum":
         return bool((out.float() - ref.float()).abs().max()
                     <= rtol * ref.float().abs().max())
+    if kind == "scaled":
+        atol *= ref.float().abs().max().item()
     return torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol)
 
 
@@ -448,10 +565,15 @@ def _bound(case, args, outs, tag):
         "operations"
 
 
-def check_kernels(results):
+def check_kernels(results, only=()):
+    """Phase 3. Fills `results` per kernel name and returns the bfloat16
+    kernel time of every case by (name, label)."""
     g = torch.Generator(device="cuda").manual_seed(1)
+    times = {}
     for case in _kernel_cases(g):
         name, label = case.name, case.label
+        if only and name not in only:
+            continue
         for dt, dtols in ((torch.float32, case.tol32),
                           (torch.bfloat16, case.tol16)):
             args = case.make(dt)
@@ -488,11 +610,14 @@ def check_kernels(results):
                                      f"its plain version: {errs}")
             r = results.setdefault(name, {"max_abs_err": 0.0})
             r["max_abs_err"] = max(r["max_abs_err"], *errs)
-            if dt == torch.bfloat16 and "ms" not in r:  # main-path shape
-                r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=library_ms)
+            if dt == torch.bfloat16:
+                times[name, label] = ms
+                if "ms" not in r:  # main-path shape
+                    r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=library_ms)
             del args, outs
             torch.cuda.empty_cache()
+    return times
 
 
 @torch.no_grad()
@@ -509,21 +634,47 @@ def randomize_bn(model, g):
             m.running_var.uniform_(0.5, 2.0, generator=g)
 
 
+@contextlib.contextmanager
+def flash_gate(keys):
+    """Lower (or restore) the key count above which `attention_core` takes
+    the flash kernels, for the card and the CPU alike."""
+    from transmf_ad_tpu_torch import ops
+
+    saved, ops.FLASH_MIN_KEYS = ops.FLASH_MIN_KEYS, keys
+    try:
+        yield
+    finally:
+        ops.FLASH_MIN_KEYS = saved
+
+
+def _require_launches(tag, launches, kernels, exact):
+    """Every kernel of `kernels` launched at least once, and those of
+    `exact` exactly that often."""
+    missing = [n for n in kernels if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"{tag} never launched {missing}")
+    wrong = {n: launches[n] for n, c in exact.items() if launches[n] != c}
+    if wrong:
+        raise AssertionError(f"{tag}: launches {wrong}, expected {exact}")
+
+
 def serve(card, tag="serving", batch=BATCH, volume=VOLUME, warmup=WARMUP,
-          n_requests=REQUESTS, kernels=SERVING_KERNELS):
+          n_requests=REQUESTS, kernels=SERVING_KERNELS, model_name="ad",
+          exact=None):
     """Serve `n_requests` requests of host arrays through
     `make_inference_fn`; returns the model, a float32 CPU copy of it and
-    the launch counts of this run, counted from zero."""
+    the launch counts of this run, counted from zero. `exact`: launch
+    counts per request that must hold exactly."""
     from transmf_ad_tpu_torch.models import build_model
     from transmf_ad_tpu_torch.ops import reset_launch_counts
     from transmf_ad_tpu_torch.serving import make_inference_fn
     from transmf_ad_tpu_torch.utils.weights import init_weights
 
     g = torch.Generator().manual_seed(0)
-    model = build_model("ad")
+    model = build_model(model_name)
     init_weights(model, g)
     randomize_bn(model, g)
-    reference = copy.deepcopy(model)  # float32 CPU copy for phase 5
+    reference = copy.deepcopy(model)  # float32 CPU copy for the checks
     fn = make_inference_fn(model, "cuda", "auto")
     rng = np.random.default_rng(0)
     requests = [tuple(rng.standard_normal((batch, *volume), dtype=np.float32)
@@ -542,12 +693,12 @@ def serve(card, tag="serving", batch=BATCH, volume=VOLUME, warmup=WARMUP,
                               atol=1e-5):
             raise AssertionError(f"{tag}: rows do not sum to 1: {probs}")
     launches = _launches()
-    missing = [n for n in kernels if launches[n] == 0]
-    if missing:
-        raise AssertionError(f"{tag} never launched {missing}")
+    _require_launches(tag, launches, kernels,
+                      {n: c * n_requests for n, c in (exact or {}).items()})
     steady = times[warmup:]
     vols = batch * len(steady) / sum(steady)
-    print(f"[{tag}] ModelAd dim=128 depth=3 bf16, batch {batch} x "
+    print(f"[{tag}] {type(model).__name__} dim=128 depth=3 bf16, batch "
+          f"{batch} x "
           f"{volume} MRI+PET, {len(steady)} requests after {warmup} warm-up: "
           f"{vols:.2f} vols/s ({1e3 * np.median(steady):.2f} ms/request "
           f"median) on {card}; launches {launches}", flush=True)
@@ -568,10 +719,15 @@ def cross_check(model, reference, volume=VOLUME, tag="check"):
     mri, pet = (torch.from_numpy(rng.standard_normal((2, *volume, 1),
                                                      dtype=np.float32))
                 for _ in range(2))
+    def outputs(out):  # an adversarial model returns a triple
+        return [t.float().cpu() for t in
+                ((out,) if isinstance(out, torch.Tensor) else out)]
+
     with torch.inference_mode():
-        card = [t.float().cpu() for t in model(mri.cuda(), pet.cuda())]
-        cpu = reference.eval()(mri, pet)
-    for name, a, b in zip(("logits", "d_mri", "d_pet"), card, cpu):
+        card = outputs(model(mri.cuda(), pet.cuda()))
+        cpu = outputs(reference.eval()(mri, pet))
+    for name, a, b in zip(("logits", "d_mri", "d_pet"), card, cpu,
+                          strict=False):
         err = (a - b).abs().max().item()
         tol = 1e-4 * (1.0 + b.abs().max().item())
         print(f"[{tag}] {name} card f32 vs cpu f32: max_abs_err={err:.3g} "
@@ -598,6 +754,21 @@ def band_cross_check(reference):
                              "every 3x3x3 body conv")
 
 
+def flash_cross_check(reference):
+    """`cross_check` of transformer_res at a small volume with the flash
+    gate lowered on both sides: K10 on the card against its plain version
+    on the CPU, through the whole model."""
+    before = _launches()
+    with flash_gate(FLASH_CHECK_GATE):
+        cross_check(copy.deepcopy(reference).cuda().eval(), reference,
+                    volume=RES_CHECK_VOLUME, tag="check, flash route")
+    after = _launches()
+    if (after["flash_fwd"] != before["flash_fwd"] + ATTENTION_CALLS
+            or after["attention_fwd"] != before["attention_fwd"]):
+        raise AssertionError("the flash-route check did not launch K10 for "
+                             "every attention call")
+
+
 def _launches():
     from transmf_ad_tpu_torch.ops import KERNELS
 
@@ -610,22 +781,25 @@ def _snapshot(model):
 
 
 def train(card, tag="train", batch_size=BATCH, volume=VOLUME,
-          warmup=TRAIN_WARMUP, steps=TRAIN_STEPS, kernels=TRAIN_KERNELS):
+          warmup=TRAIN_WARMUP, steps=TRAIN_STEPS, kernels=TRAIN_KERNELS,
+          model_name="ad", exact=None):
     """The train step at full width: ms/step, volumes/s, every loss, the
-    launch counts of this run (counted from zero) and its peak memory."""
+    launch counts of this run (counted from zero) and its peak memory.
+    `exact`: launch counts per step that must hold exactly."""
     from transmf_ad_tpu_torch.data.transforms import AugmentConfig
-    from transmf_ad_tpu_torch.models import build_model
+    from transmf_ad_tpu_torch.models import ADVERSARIAL, build_model
     from transmf_ad_tpu_torch.ops import reset_launch_counts
     from transmf_ad_tpu_torch.train import create_state, make_train_step
     from transmf_ad_tpu_torch.utils.weights import init_weights
 
     g = torch.Generator().manual_seed(3)
-    model = build_model("ad")  # head dropout 0.5
+    model = build_model(model_name)  # head dropout 0.5
     init_weights(model, g)
     randomize_bn(model, g)
     state = create_state(model, "cuda", "auto", seed=0, name="Adam",
                          lr=1e-4)
-    step = make_train_step(aug_cfg=AugmentConfig())
+    step = make_train_step(adversarial=model_name in ADVERSARIAL,
+                           aug_cfg=AugmentConfig())
     # [0, 1]-normalised volumes made on the device, as a device feed holds
     # them; labels alternate
     dg = torch.Generator(device="cuda").manual_seed(4)
@@ -647,9 +821,8 @@ def train(card, tag="train", batch_size=BATCH, volume=VOLUME,
         times.append(time.perf_counter() - t0)
         losses.append(float(aux["loss"]))
     launches = _launches()
-    missing = [n for n in kernels if launches[n] == 0]
-    if missing:
-        raise AssertionError(f"{tag}: the step never launched {missing}")
+    _require_launches(tag, launches, kernels,
+                      {n: c * len(batches) for n, c in (exact or {}).items()})
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{tag}: non-finite losses {losses}")
     after = _snapshot(model)
@@ -659,7 +832,8 @@ def train(card, tag="train", batch_size=BATCH, volume=VOLUME,
         raise AssertionError(f"{tag}: unchanged after {len(batches)} steps: "
                              f"{still}")
     steady = times[warmup:]
-    print(f"[{tag}] ModelAd dim=128 depth=3 bf16 (f32 master weights), "
+    print(f"[{tag}] {type(model).__name__} dim=128 depth=3 bf16 (f32 master "
+          f"weights), "
           f"batch {batch_size} x {volume} MRI+PET, augmentation on, head "
           f"dropout 0.5, Adam 1e-4: {len(steady)} steps after {warmup} "
           f"warm-up: {batch_size * len(steady) / sum(steady):.2f} vols/s "
@@ -673,7 +847,7 @@ def train(card, tag="train", batch_size=BATCH, volume=VOLUME,
     return launches
 
 
-def sgd_step(model, device, batch):
+def sgd_step(model, device, batch, adversarial=True):
     """One step of the port's train step with SGD (lr 1, no momentum, so
     each parameter update is minus its gradient) in float32: name -> tensor
     on the CPU for the three losses, every parameter update and every
@@ -681,9 +855,9 @@ def sgd_step(model, device, batch):
     from transmf_ad_tpu_torch.train import create_state, make_train_step
 
     before = _snapshot(model)
-    aux = make_train_step()(create_state(model, device, torch.float32,
-                                         name="SGD", lr=1.0, milestones=()),
-                            batch)
+    aux = make_train_step(adversarial=adversarial)(
+        create_state(model, device, torch.float32, name="SGD", lr=1.0,
+                     milestones=()), batch)
     out = {k: aux[k].float().cpu() for k in ("loss", "ce_loss", "ad_loss")}
     for k, v in _snapshot(model).items():
         if "running" in k:
@@ -722,11 +896,11 @@ def compare_steps(card, cpu, perturbed):
     return sorted(rows, reverse=True)
 
 
-def check_batch(seed):
+def check_batch(seed, volume=CHECK_VOLUME):
     """The train check's batch: [0, 1) volumes from a numpy seed, labels
     alternating."""
     rng = np.random.default_rng(seed)
-    batch = {k: torch.from_numpy(rng.random((CHECK_BATCH, *CHECK_VOLUME),
+    batch = {k: torch.from_numpy(rng.random((CHECK_BATCH, *volume),
                                             dtype=np.float32))
              for k in ("MRI", "PET")}
     batch["label"] = torch.arange(CHECK_BATCH) % 2
@@ -742,29 +916,37 @@ def perturb(batch, seed):
             for k, v in batch.items()}
 
 
-def train_check(**model_kw):
+def train_check(model_name="ad", volume=CHECK_VOLUME, **model_kw):
     """One SGD step with the same weights on the card (kernels, float32,
     TF32 off) and on the CPU (plain versions), at full width, batch 4 (with
     2 samples every BatchNorm1d gradient is O(eps / var), a difference of
     rounding), no augmentation or dropout: the losses, every parameter
     update and every running statistic agree (`compare_steps`).
     `model_kw` (band_min_voxels=0: every 3x3x3 body conv through K8 and
-    K9) goes to `build_model`."""
-    from transmf_ad_tpu_torch.models import build_model
+    K9) goes to `build_model`. transformer_res runs with the flash gate
+    lowered, so its backward goes through K11 and K12."""
+    from transmf_ad_tpu_torch.models import ADVERSARIAL, build_model
     from transmf_ad_tpu_torch.utils.weights import init_weights
 
     g = torch.Generator().manual_seed(5)
-    model = build_model("ad", head_dropout=0.0, **model_kw)
+    model = build_model(model_name, head_dropout=0.0, **model_kw)
     init_weights(model, g)
     randomize_bn(model, g)
-    batch = check_batch(5)
-    cpu = sgd_step(copy.deepcopy(model), "cpu", batch)
-    perturbed = [sgd_step(copy.deepcopy(model), "cpu", perturb(batch, d))
-                 for d in range(CHECK_DRAWS)]
-    before = _launches()
-    card = sgd_step(model, "cuda", batch)
+    batch = check_batch(5, volume)
+    adversarial = model_name in ADVERSARIAL
+    flash = model_name == "transformer_res"
+    with flash_gate(FLASH_CHECK_GATE) if flash else contextlib.nullcontext():
+        cpu = sgd_step(copy.deepcopy(model), "cpu", batch, adversarial)
+        perturbed = [sgd_step(copy.deepcopy(model), "cpu", perturb(batch, d),
+                              adversarial) for d in range(CHECK_DRAWS)]
+        before = _launches()
+        card = sgd_step(model, "cuda", batch, adversarial)
+    after = _launches()
+    if flash and any(after[n] != before[n] + ATTENTION_CALLS for n in
+                     ("flash_fwd", "flash_dq", "flash_dkv")):
+        raise AssertionError("train check: the flash route did not launch "
+                             "K10, K11 and K12 for every attention call")
     if model_kw.get("band_min_voxels") == 0:
-        after = _launches()
         # per encoder 5 convs: forward and dx through K8, dw through K9
         if (after["band_conv"] != before["band_conv"] + 20
                 or after["band_dw"] != before["band_dw"] + 10):
@@ -772,9 +954,11 @@ def train_check(**model_kw):
                                  "launch K8 and K9 for every body conv")
     rows = compare_steps(card, cpu, perturbed)
     within = sum(r[1] <= 1.0 for r in rows)
-    print(f"[train check{' ' + str(model_kw) if model_kw else ''}] one SGD "
+    what = " ".join(["train check", *([model_name] if flash else []),
+                     *([str(model_kw)] if model_kw else [])])
+    print(f"[{what}] one SGD "
           f"step, full width, batch {CHECK_BATCH} x "
-          f"{CHECK_VOLUME}, card f32 vs cpu f32: loss "
+          f"{volume}, card f32 vs cpu f32: loss "
           f"{float(card['loss']):.6f} vs {float(cpu['loss']):.6f}; all "
           f"{len(rows)} tensors agree, {within} of them within 1e-3 of "
           f"their largest magnitude; closest to the tolerance: "
@@ -782,7 +966,12 @@ def train_check(**model_kw):
           f"(name, of the tolerance, of the 1e-3 part)", flush=True)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--only", nargs="+", default=(), metavar="KERNEL",
+                        help="phases 1-3 for these kernels alone; prints no "
+                        "result lines")
+    only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs a CUDA GPU", file=sys.stderr)
@@ -811,7 +1000,16 @@ def main() -> int:
             print(f"[build] {line.split(':', 1)[-1].strip()}", flush=True)
 
     results: dict = {}
-    check_kernels(results)
+    times = check_kernels(results, only)
+    if only:
+        print(f"chip_smoke: --only {' '.join(only)}: phases 4-11 not run, "
+              "no result", flush=True)
+        return 0
+    side = {f"{name} at {keys} keys": round(times[name, label], 4)
+            for (name, keys), label in CROSSOVER.items()}
+    print(f"[kernel] K2 (attention_fwd) and K10 (flash_fwd) side by side, "
+          f"{FLASH_SHAPE[2]} queries, bfloat16, ms: {side}; attention_core "
+          f"switches above 2,048 keys", flush=True)
     model, reference, serving = serve(card)
     cross_check(model, reference)
     del model, reference
@@ -829,9 +1027,28 @@ def main() -> int:
     full_trained = train(card, "train, full resolution", FULL_BATCH,
                          FULL_VOLUME, FULL_TRAIN_WARMUP, FULL_TRAIN_STEPS,
                          FULL_TRAIN_KERNELS)
+    no_k2 = {"attention_fwd": 0}
+    tag = "serving, full resolution, transformer_res"
+    model, reference, res_serving = serve(
+        card, tag, FULL_BATCH, FULL_VOLUME, FULL_WARMUP, FULL_REQUESTS,
+        RES_SERVING_KERNELS, "transformer_res",
+        {"flash_fwd": ATTENTION_CALLS, **no_k2})
+    del model
+    torch.cuda.empty_cache()
+    flash_cross_check(reference)
+    del reference
+    res_trained = train(
+        card, "train, full resolution, transformer_res", FULL_BATCH,
+        FULL_VOLUME, FULL_TRAIN_WARMUP, FULL_TRAIN_STEPS, RES_TRAIN_KERNELS,
+        "transformer_res",
+        {n: ATTENTION_CALLS for n in ("flash_fwd", "flash_dq", "flash_dkv")}
+        | no_k2)
+    train_check("transformer_res", RES_CHECK_VOLUME)
     runs = {"serving": serving, "train": trained,
             "serving, full resolution": full_serving,
-            "train, full resolution": full_trained}
+            "train, full resolution": full_trained,
+            tag: res_serving,
+            "train, full resolution, transformer_res": res_trained}
     print(f"[launches] {runs}", flush=True)
 
     kernels = [{"name": k.name, "route": "cuda", "source": k.source,

@@ -1,11 +1,14 @@
-"""Where the time of one full-width ModelAd train step goes on one GPU.
+"""Where the time of one full-width train step goes on one GPU.
 
     python3 profile_train.py [--batch 8] [--volume 91 109 91]
     python3 profile_train.py --batch 6 --volume 182 218 182 [--serving]
+    python3 profile_train.py --model transformer_res --batch 6 \
+        --volume 182 218 182 --serving
 
 The train step of `chip_smoke.py`'s train phases (bf16, augmentation on,
 Adam; batch 8 at 91x109x91 by default, batch 6 at 182x218x182 for the
-full-resolution step), and each of its parts run alone. Per part: wall ms
+full-resolution step; ModelAd by default, `--model` for another ported
+model), and each of its parts run alone. Per part: wall ms
 (median of 7 after a warm-up, host clock around a synchronised call) and
 device ms (torch.profiler: the union of device-event intervals over 3 calls,
 divided by 3). Then the largest device kernels of 3 profiled steps, the
@@ -24,7 +27,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
 from transmf_ad_tpu_torch.data.transforms import AugmentConfig
-from transmf_ad_tpu_torch.models import build_model
+from transmf_ad_tpu_torch.models import ADVERSARIAL, build_model
 from transmf_ad_tpu_torch.nn.blocks import global_avg_pool, tokens_from_volume
 from transmf_ad_tpu_torch.serving import make_inference_fn
 from transmf_ad_tpu_torch.train import create_state, make_train_step
@@ -39,19 +42,22 @@ print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
 parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
 parser.add_argument("--batch", type=int, default=8)
 parser.add_argument("--volume", type=int, nargs=3, default=(91, 109, 91))
+parser.add_argument("--model", default="ad",
+                    help="ad (default), transformer or transformer_res")
 parser.add_argument("--serving", action="store_true",
                     help="also profile one serving request")
 args = parser.parse_args()
 B, V = args.batch, tuple(args.volume)
-print(f"batch {B}, volume {V}")
+ADV = args.model in ADVERSARIAL
+print(f"model {args.model}, batch {B}, volume {V}")
 g = torch.Generator().manual_seed(3)
-model = build_model("ad")
+model = build_model(args.model)
 init_weights(model, g)
 cs.randomize_bn(model, g)
 state = create_state(model, "cuda", "auto", seed=0, name="Adam", lr=1e-4)
 aug = AugmentConfig()
-step = make_train_step(aug_cfg=aug)
-step_noaug = make_train_step()
+step = make_train_step(adversarial=ADV, aug_cfg=aug)
+step_noaug = make_train_step(adversarial=ADV)
 dg = torch.Generator(device="cuda").manual_seed(4)
 batch = {"MRI": torch.rand(B, *V, generator=dg, device="cuda"),
          "PET": torch.rand(B, *V, generator=dg, device="cuda"),
@@ -105,10 +111,19 @@ feat = model.mri_cnn(x, True)
 gf = torch.randn_like(feat)
 tok = tokens_from_volume(feat.detach()).requires_grad_()
 tok2 = tok.detach().clone().requires_grad_()
-gt = torch.randn(B, 4 * 128, device="cuda", dtype=torch.bfloat16)
 pooled = global_avg_pool(feat.detach()).requires_grad_()
-fused = torch.randn(B, 512, device="cuda", dtype=torch.bfloat16,
-                    requires_grad=True)
+fused = torch.randn(B, model.fc_cls[0].in_features, device="cuda",
+                    dtype=torch.bfloat16, requires_grad=True)
+
+
+def fuse_backward():
+    """Forward and backward of the fusion module, with a random gradient
+    for each of its outputs (one pooled vector, or the two token streams)."""
+    out = model.fuse_transformer(tok, tok2, True, gen)
+    outs = (out,) if isinstance(out, torch.Tensor) else out
+    torch.autograd.backward(outs, [torch.randn_like(o) for o in outs])
+
+
 parts = {
     "step (augmentation on)": lambda: step(state, batch),
     "step (no augmentation)": lambda: step_noaug(state, batch),
@@ -119,16 +134,16 @@ parts = {
         lambda: model.mri_cnn(x, True).backward(gf),
     "transformer forward": lambda: model.fuse_transformer(tok, tok2, True,
                                                           gen),
-    "transformer forward + backward": lambda: model.fuse_transformer(
-        tok, tok2, True, gen).backward(gt),
-    "discriminator forward + backward (one modality)":
-        lambda: model.D(pooled, True).float().sum().backward(),
+    "transformer forward + backward": fuse_backward,
     "fusion head forward + backward":
         lambda: model.fc_cls(fused, True, None, gen).float().sum().backward(),
     "Adam step": lambda: state.optimizer.step(),
 }
+if ADV:
+    parts["discriminator forward + backward (one modality)"] = \
+        lambda: model.D(pooled, True).float().sum().backward()
 if args.serving:
-    serving_model = build_model("ad")
+    serving_model = build_model(args.model)
     init_weights(serving_model, g)
     cs.randomize_bn(serving_model, g)
     infer = make_inference_fn(serving_model, "cuda", "auto")

@@ -19,9 +19,12 @@ import pytest
 import torch
 from flax import traverse_util
 
+from transmf_ad_tpu import ops as j_ops
 from transmf_ad_tpu.models import build_model as j_build_model
 from transmf_ad_tpu.ops import band_conv as j_band
+from transmf_ad_tpu_torch import ops as t_ops
 from transmf_ad_tpu_torch.models import build_model
+from transmf_ad_tpu_torch.ops import flash_attention as t_flash
 from transmf_ad_tpu_torch.utils.weights import state_dict_from_jax
 
 SHAPE = (2, 35, 37, 33)  # odd tails at every pooling stage
@@ -114,18 +117,49 @@ def volumes(seed):
     return [rng.standard_normal(SHAPE).astype(np.float32) for _ in range(2)]
 
 
-def model_ad(port_kw=None, **overrides):
-    """(JAX ModelAd with Pallas on, randomised variables, port model with
-    the same weights); test modules wrap it as a module-scoped fixture.
+def model(name, port_kw=None, **overrides):
+    """(JAX model `name` with Pallas on, randomised variables, port model
+    with the same weights); test modules wrap it as a module-scoped fixture.
     `overrides` (e.g. head_dropout) go to both models, `port_kw` (e.g.
     band_min_voxels) to the port's alone."""
     kw = dict(SMALL, **overrides)
     # the parameter tree does not depend on the volume size: initialise on
     # the smallest volume that survives the four 2x poolings
     x = jnp.zeros((1, 16, 16, 16, 1), jnp.float32)
-    v = jax.jit(j_build_model("ad", use_pallas=False, **kw).init)(
+    v = jax.jit(j_build_model(name, use_pallas=False, **kw).init)(
         jax.random.key(2), x, x)
     v = randomize_bn(v, seed=4)
-    port = build_model("ad", **kw, **(port_kw or {}))
-    port.load_state_dict(state_dict_from_jax(v), strict=True)
-    return j_build_model("ad", use_pallas=True, **kw), v, port
+    port = build_model(name, **kw, **(port_kw or {}))
+    port.load_state_dict(state_dict_from_jax(v, name), strict=True)
+    return j_build_model(name, use_pallas=True, **kw), v, port
+
+
+def model_ad(port_kw=None, **overrides):
+    """`model("ad", ...)`."""
+    return model("ad", port_kw, **overrides)
+
+
+@contextlib.contextmanager
+def flash_route(min_keys):
+    """Lower the key count above which `attention_core` takes the flash
+    kernels, in the JAX package (read when a function is traced: trace
+    under it, through a fresh `jax.jit`) and in the port. Yields a list
+    that grows by "jax" or "port" per flash forward, so a test can show
+    that the route was taken."""
+    calls = []
+    j_inner, inner = j_ops.flash_attention, t_flash.flash_fwd
+
+    def j_spy(*a, **kw):
+        calls.append("jax")
+        return j_inner(*a, **kw)
+
+    def spy(*a, **kw):
+        calls.append("port")
+        return inner(*a, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_ops, "FLASH_MIN_KEYS", min_keys)
+        mp.setattr(t_ops, "FLASH_MIN_KEYS", min_keys)
+        mp.setattr(j_ops, "flash_attention", j_spy)
+        mp.setattr(t_flash, "flash_fwd", spy)
+        yield calls

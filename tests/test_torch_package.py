@@ -19,8 +19,8 @@ from transmf_ad_tpu_torch import _build
 from transmf_ad_tpu_torch.models import build_model
 from transmf_ad_tpu_torch.nn.grl import revgrad
 from transmf_ad_tpu_torch.ops import (KERNELS, attention_core, band_conv,
-                                      pool3d, pooling, reset_launch_counts,
-                                      stem)
+                                      flash_attention as flash, pool3d,
+                                      pooling, reset_launch_counts, stem)
 from transmf_ad_tpu_torch.ops.flash_attention import (FLASH_MIN_KEYS,
                                                       attention_reference,
                                                       fused_attention)
@@ -84,14 +84,18 @@ def test_cpu_calls_leave_launch_counts_at_zero(rng):
         k.launches = 7
     reset_launch_counts()
     assert all(k.launches == 0 for k in KERNELS)
-    for kw in ({}, {"band_min_voxels": 0}):
-        model = build_model("ad", **SMALL, **kw)
+    for name, kw in (("ad", {}), ("ad", {"band_min_voxels": 0}),
+                     ("transformer", {}), ("transformer_res", {})):
+        model = build_model(name, **SMALL, **kw)
         probs = make_inference_fn(model, "cpu")(*_volumes(rng))
         assert probs.shape == (2, 2)
         mri, pet = _volumes(rng)
-        aux = make_train_step()(create_state(model, "cpu"),
-                                {"MRI": mri, "PET": pet, "label": [0, 1]})
+        aux = make_train_step(adversarial=name == "ad")(
+            create_state(model, "cpu"),
+            {"MRI": mri, "PET": pet, "label": [0, 1]})
         assert torch.isfinite(aux["loss"])
+    q, kv = torch.ones(1, 1, 3, 8), torch.ones(1, 1, FLASH_MIN_KEYS + 1, 8)
+    attention_core(q.requires_grad_(), kv, kv, 1.0).sum().backward()
     pooling.fused_token_pool(torch.ones(1, 3, 4), torch.ones(1, 3, 4))
     pool3d.max_pool3d_2x2(torch.ones(1, 2, 2, 2, 3))
     assert {k.name: k.launches for k in KERNELS} == {
@@ -136,14 +140,26 @@ def test_non_cpu_tensors_never_take_the_plain_path():
     q = torch.ones(1, 1, 3, 8, **meta)
     with pytest.raises(ValueError, match="CUDA"):
         fused_attention(q, q, q, 1.0)
+    # above the gate `attention_core` takes the flash kernels, which raise
+    # like every other op; so do their separate entries
     long = torch.ones(1, 1, FLASH_MIN_KEYS + 1, 8, **meta)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="CUDA"):
         attention_core(q, long, long, 1.0)
-    # on the CPU the long-key case runs the plain version
+    with pytest.raises(ValueError, match="CUDA"):
+        flash.flash_fwd(q, q, q, 1.0)
+    row = torch.ones(1, 1, 3, **meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash.flash_dq(q, q, q, q, row, row, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash.flash_dkv(q, q, q, q, row, row, 1.0)
+    # on the CPU the long-key case runs the plain flash version
     qc = torch.randn(1, 1, 3, 8)
     kc = torch.randn(1, 1, FLASH_MIN_KEYS + 1, 8)
-    torch.testing.assert_close(attention_core(qc, kc, kc, 0.5),
-                               attention_reference(qc, kc, kc, 0.5))
+    out = attention_core(qc, kc, kc, 0.5)
+    torch.testing.assert_close(out, flash.flash_fwd_reference(qc, kc, kc,
+                                                              0.5)[0],
+                               rtol=0, atol=0)
+    torch.testing.assert_close(out, attention_reference(qc, kc, kc, 0.5))
 
 
 def test_train_mode_raises(rng):
@@ -200,6 +216,33 @@ def _cases(g):
     q, k, v = r(2, 3, 37, 24), r(2, 3, 70, 24), r(2, 3, 70, 24)
     qd, kd = r(1, 2, 5, 128), r(1, 2, 33, 128)
     gp = r(2, 2, 3, 4, 3)
+    # flash: partial tiles of queries and keys, a head dim off the lane
+    # grid, and the widest head
+    qf, kf, vf, gf = r(2, 3, 37, 24), r(2, 3, 70, 24), r(2, 3, 70, 24), \
+        r(2, 3, 37, 24)
+    qw, kw, gw_ = r(1, 2, 45, 128), r(1, 2, 33, 128), r(1, 2, 45, 128)
+
+    def flash_bwd_in(t, q_, k_, v_, g_, scale):
+        """q, k, v, g, and the plain forward's lse and delta"""
+        o, lse = flash.flash_fwd_reference(t(q_), t(k_), t(v_), scale)
+        return (t(q_), t(k_), t(v_), t(g_), lse,
+                flash.flash_delta(o, t(g_)), scale)
+
+    flash_cases = [
+        case for args in ((qf, kf, vf, gf, 0.2), (qw, kw, kw, gw_, 0.1))
+        for case in (
+            ("flash_fwd", lambda t, a=args: flash.flash_fwd(
+                t(a[0]), t(a[1]), t(a[2]), a[4]),
+             lambda t, a=args: flash.flash_fwd_reference(
+                 t(a[0]), t(a[1]), t(a[2]), a[4]), "vv"),
+            ("flash_dq", lambda t, a=args: flash.flash_dq(
+                *flash_bwd_in(t, *a)),
+             lambda t, a=args: flash.flash_dq_reference(
+                 *flash_bwd_in(t, *a)), "v"),
+            ("flash_dkv", lambda t, a=args: flash.flash_dkv(
+                *flash_bwd_in(t, *a)),
+             lambda t, a=args: flash.flash_dkv_reference(
+                 *flash_bwd_in(t, *a)), "vv"))]
     # band conv: odd channel counts (3 -> 5), then more input channels than
     # one chunk and more output channels than one block (40 -> 70)
     xb, wb, gb, ab, bb = r(2, 5, 7, 19, 3), 0.2 * r(3, 3, 3, 3, 5), \
@@ -274,7 +317,7 @@ def _cases(g):
         ("affine_act_pool_bwd",
          lambda t, c=c: pool_bwd(t, *c, plain=False),
          lambda t, c=c: pool_bwd(t, *c, plain=True), "vs")
-        for c in bwd_cases]
+        for c in bwd_cases] + flash_cases
 
 
 def _match(out, ref, kind, dtype, what):
@@ -312,8 +355,9 @@ def test_kernels_match_plain_on_cuda(cuda):
 
 @pytest.mark.cuda
 def test_backward_launches_kernels_on_cuda(cuda):
-    """Autograd through the pool entries and the training stem reaches K7
-    and K6 and gives the plain backward's gradients."""
+    """Autograd through the pool entries, the training stem, the band conv
+    and flash attention reaches K7, K6, K8/K9 and K11/K12 and gives the
+    plain backward's gradients."""
     x = torch.randn(2, 9, 11, 13, generator=cuda, device="cuda")
     w = torch.randn(3, 3, 3, 4, generator=cuda, device="cuda")
     grads = []
@@ -354,6 +398,23 @@ def test_backward_launches_kernels_on_cuda(cuda):
         for a, b in zip(*grads):
             torch.testing.assert_close(a, b, rtol=1e-4,
                                        atol=1e-4 * float(b.abs().max()))
+    # flash attention: forward K10, backward K11 and K12, and never K2
+    qkv = [torch.randn(2, 2, n, 16, generator=cuda, device="cuda")
+           for n in (37, 70, 70)]
+    grads = []
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).clone().requires_grad_() for t in qkv]
+        before = {k.name: k.launches for k in KERNELS}
+        flash.flash_attention(*leaves, 0.25).square().sum().backward()
+        after = {k.name: k.launches for k in KERNELS}
+        if dev == "cuda":
+            for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+                assert after[name] == before[name] + 1, name
+            assert after["attention_fwd"] == before["attention_fwd"]
+        grads.append([t.grad.cpu() for t in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
     x = torch.randn(2, 4, 4, 4, 3, device="cuda")
     with pytest.raises(TypeError, match="dtype"):
         pool3d.max_pool3d_2x2(x.half())

@@ -15,16 +15,19 @@ from transmf_ad_tpu_torch.utils.weights import state_dict_from_jax
 SMALL = dict(dim=16, depth=2, heads=2, dim_head=8, mlp_dim=32)
 
 
-@pytest.fixture(scope="module")
-def variables():
+def _init(name):
     x = jnp.zeros((1, 16, 16, 16, 1), jnp.float32)
-    return jax.jit(j_build_model("ad", use_pallas=False, **SMALL).init)(
+    return jax.jit(j_build_model(name, use_pallas=False, **SMALL).init)(
         jax.random.key(0), x, x)
 
 
-def test_inverse_of_map_state_dict(variables):
-    """map_state_dict(state_dict_from_jax(v)) gives back v exactly."""
-    params, stats = map_state_dict(state_dict_from_jax(variables), "ad")
+@pytest.fixture(scope="module")
+def variables():
+    return _init("ad")
+
+
+def _assert_round_trip(variables, name):
+    params, stats = map_state_dict(state_dict_from_jax(variables, name), name)
     for got, want in ((params, variables["params"]),
                       (stats, variables["batch_stats"])):
         got, want = (traverse_util.flatten_dict(t) for t in (got, want))
@@ -32,6 +35,30 @@ def test_inverse_of_map_state_dict(variables):
         for k in want:
             np.testing.assert_array_equal(got[k], np.asarray(want[k]),
                                           err_msg=str(k))
+
+
+def test_inverse_of_map_state_dict(variables):
+    """map_state_dict(state_dict_from_jax(v)) gives back v exactly."""
+    _assert_round_trip(variables, "ad")
+
+
+@pytest.mark.parametrize("name", ["transformer", "transformer_res"])
+def test_inverse_of_map_state_dict_fusion_models(name):
+    """The same for the models without a discriminator; transformer_res has
+    no BatchNorm in its head, so no batch_stats for it either. The port's
+    model takes the result strictly."""
+    v = _init(name)
+    assert ("fc_cls" in v["batch_stats"]) == (name == "transformer")
+    _assert_round_trip(v, name)
+    sd = state_dict_from_jax(v, name)
+    port = build_model(name, **SMALL)
+    assert sd.keys() == port.state_dict().keys()
+    assert not any(k.startswith("D.") for k in sd)
+    port.load_state_dict(sd, strict=True)
+    last = {"transformer": "8", "transformer_res": "6"}[name]
+    np.testing.assert_array_equal(
+        port.fc_cls[int(last)].weight.detach().numpy(),
+        np.asarray(v["params"]["fc_cls"]["Dense_2"]["kernel"]).T)
 
 
 @pytest.mark.parametrize("port_kw", [{}, {"band_min_voxels": 0}],
@@ -64,7 +91,7 @@ def test_wrong_shape_raises(variables):
 
 
 def test_unported_model_raises(variables):
-    with pytest.raises(ValueError, match="only 'ad'"):
+    with pytest.raises(ValueError, match="ported models are 'ad'"):
         state_dict_from_jax(variables, model="cnn_ad")
     with pytest.raises(ValueError, match="unported"):
         build_model("cnn_ad")

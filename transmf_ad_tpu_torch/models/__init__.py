@@ -2,14 +2,32 @@
 
 `build_model(name, **overrides)` mirrors transmf_ad_tpu/models/__init__.py:
 fusion models default dim_head to dim // heads and mlp_dim to dim * 4, as
-the reference k-fold drivers do. Only 'ad' is ported so far.
+the reference's k-fold training scripts do. Only 'ad', 'transformer' and
+'transformer_res' are ported so far. `ADVERSARIAL` lists the ported models
+that return (logits, d_mri, d_pet) triples; the others return logits.
 """
 
 from __future__ import annotations
 
-from .transmf import ModelAd  # noqa: F401
+from .transmf import (  # noqa: F401
+    ModelAd,
+    ModelTransformer,
+    ModelTransformerRes,
+)
 
-_REGISTRY = {"ad": ModelAd}
+ADVERSARIAL = {"ad"}
+
+_REGISTRY = {"ad": ModelAd, "transformer": ModelTransformer,
+             "transformer_res": ModelTransformerRes}
+
+
+def model_name(model) -> str:
+    """The registry key of a model built by `build_model`."""
+    for key, cls in _REGISTRY.items():
+        if type(model) is cls:
+            return key
+    raise ValueError(f"{type(model).__name__} is not a registered model; "
+                     f"registered: {sorted(_REGISTRY)}")
 
 
 def build_model(name: str, dim: int = 128, depth: int = 3, heads: int = 4,

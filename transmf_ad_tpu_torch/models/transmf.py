@@ -1,11 +1,17 @@
-"""The paper model `ModelAd`.
+"""The cross-modal fusion models: `ModelAd`, `ModelTransformer`,
+`ModelTransformerRes`.
 
-Port of transmf_ad_tpu/models/transmf.py (`_FusionHead`, `_Discriminator`,
-`ModelAd`): dual sNet encoders, a gradient-reversal discriminator on the
-pooled features, cross-modal transformer fusion and a 4*dim pooling head ->
-(logits, d_mri, d_pet). Module names follow the reference torch model
-(`mri_cnn`, `pet_cnn`, `D.{0,1,3}`, `fuse_transformer`,
-`fc_cls.{0,1,4,5,8}`).
+Port of transmf_ad_tpu/models/transmf.py (`_FusionHead`, `_Discriminator`
+and the three models). `ModelAd`, the paper model: dual sNet encoders, a
+gradient-reversal discriminator on the pooled features, cross-modal
+transformer fusion and a 4*dim pooling head -> (logits, d_mri, d_pet).
+`ModelTransformer` is the same without the discriminator -> logits.
+`ModelTransformerRes` fuses with `CrossTransformer` (each stream attends
+over both), adds the encoder tokens back, averages each stream over its
+tokens and classifies with a BatchNorm-less head -> logits. Module names
+follow the reference torch models (`mri_cnn`, `pet_cnn`, `D.{0,1,3}`,
+`fuse_transformer`, `fc_cls.{0,1,4,5,8}`, or `fc_cls.{0,3,6}` without
+BatchNorm).
 
 Volumes are channels-last (B, X, Y, Z, 1); the whole forward computes in
 the volumes' dtype with float32 parameters. `train=True` takes BatchNorm
@@ -17,7 +23,9 @@ from __future__ import annotations
 
 from torch import nn
 
-from ..nn.attention import CrossTransformerModAvg, Linear
+import torch
+
+from ..nn.attention import CrossTransformer, CrossTransformerModAvg, Linear
 from ..nn.batchnorm import BatchNormMasked
 from ..nn.blocks import (BAND_MIN_VOXELS, SNet, global_avg_pool,
                          tokens_from_volume)
@@ -26,22 +34,29 @@ from ..nn.grl import revgrad
 
 
 class _FusionHead(nn.Sequential):
-    """Linear -> BN -> ReLU -> Dropout, twice (512, 64), -> Linear(64, 2)."""
+    """Linear -> BN -> ReLU -> Dropout, twice (512, 64), -> Linear(64, 2);
+    without the BN layers (and their slots) when use_batchnorm=False."""
 
-    def __init__(self, in_features: int, drop_rate: float = 0.5):
-        super().__init__(
-            Linear(in_features, 512), BatchNormMasked(512), nn.ReLU(),
-            Dropout(drop_rate),
-            Linear(512, 64), BatchNormMasked(64), nn.ReLU(),
-            Dropout(drop_rate),
-            Linear(64, 2))
+    def __init__(self, in_features: int, drop_rate: float = 0.5,
+                 use_batchnorm: bool = True):
+        layers, fan_in = [], in_features
+        for width in (512, 64):
+            layers.append(Linear(fan_in, width))
+            if use_batchnorm:
+                layers.append(BatchNormMasked(width))
+            layers += [nn.ReLU(), Dropout(drop_rate)]
+            fan_in = width
+        super().__init__(*layers, Linear(fan_in, 2))
 
     def forward(self, x, train: bool = False, bn_mask=None, generator=None):
-        layers = list(self)
-        for i in (0, 4):
-            lin, bn, relu, drop = layers[i:i + 4]
-            x = drop(relu(bn(lin(x), train, bn_mask)), train, generator)
-        return layers[8](x)
+        for layer in self:
+            if isinstance(layer, BatchNormMasked):
+                x = layer(x, train, bn_mask)
+            elif isinstance(layer, Dropout):
+                x = layer(x, train, generator)
+            else:
+                x = layer(x)
+        return x
 
 
 class _Discriminator(nn.Sequential):
@@ -87,3 +102,57 @@ class ModelAd(nn.Module):
                                       tokens_from_volume(pet_feat), train,
                                       generator)
         return self.fc_cls(fused, train, bn_mask, generator), d_mri, d_pet
+
+
+class ModelTransformer(nn.Module):
+    """Cross-modal transformer fusion without the adversarial branch
+    (reference: mymodel.py:69-98): `ModelAd`'s encoders, fusion and head,
+    -> logits."""
+
+    def __init__(self, dim: int = 128, depth: int = 3, heads: int = 4,
+                 dim_head: int = 32, mlp_dim: int = 512, dropout: float = 0.0,
+                 head_dropout: float = 0.5,
+                 band_min_voxels: int = BAND_MIN_VOXELS):
+        super().__init__()
+        self.mri_cnn = SNet(dim, band_min_voxels)
+        self.pet_cnn = SNet(dim, band_min_voxels)
+        self.fuse_transformer = CrossTransformerModAvg(
+            dim, depth, heads, dim_head, mlp_dim, dropout)
+        self.fc_cls = _FusionHead(4 * dim, head_dropout)
+
+    def forward(self, mri, pet, train: bool = False, bn_mask=None,
+                generator=None):
+        """mri, pet: (B, X, Y, Z, 1) -> logits (B, 2)."""
+        fused = self.fuse_transformer(
+            tokens_from_volume(self.mri_cnn(mri, train, bn_mask)),
+            tokens_from_volume(self.pet_cnn(pet, train, bn_mask)), train,
+            generator)
+        return self.fc_cls(fused, train, bn_mask, generator)
+
+
+class ModelTransformerRes(nn.Module):
+    """`CrossTransformer` fusion over the joint context, an outer residual
+    to the encoder tokens, the mean over each stream's tokens and a
+    BatchNorm-less head (reference: mymodel.py:101-141) -> logits."""
+
+    def __init__(self, dim: int = 128, depth: int = 3, heads: int = 4,
+                 dim_head: int = 32, mlp_dim: int = 512, dropout: float = 0.0,
+                 head_dropout: float = 0.5,
+                 band_min_voxels: int = BAND_MIN_VOXELS):
+        super().__init__()
+        self.mri_cnn = SNet(dim, band_min_voxels)
+        self.pet_cnn = SNet(dim, band_min_voxels)
+        self.fuse_transformer = CrossTransformer(dim, depth, heads, dim_head,
+                                                 mlp_dim, dropout)
+        self.fc_cls = _FusionHead(2 * dim, head_dropout, use_batchnorm=False)
+
+    def forward(self, mri, pet, train: bool = False, bn_mask=None,
+                generator=None):
+        """mri, pet: (B, X, Y, Z, 1) -> logits (B, 2)."""
+        mri_tok = tokens_from_volume(self.mri_cnn(mri, train, bn_mask))
+        pet_tok = tokens_from_volume(self.pet_cnn(pet, train, bn_mask))
+        mri_f, pet_f = self.fuse_transformer(mri_tok, pet_tok, train,
+                                             generator)
+        pooled = torch.cat([(mri_f + mri_tok).mean(dim=1),
+                            (pet_f + pet_tok).mean(dim=1)], dim=-1)
+        return self.fc_cls(pooled, train, bn_mask, generator)

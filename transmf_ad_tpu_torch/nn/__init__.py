@@ -2,6 +2,7 @@
 
 from .attention import (  # noqa: F401
     Attention,
+    CrossTransformer,
     CrossTransformerModAvg,
     FeedForward,
     LayerNorm,

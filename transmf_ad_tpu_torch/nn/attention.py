@@ -1,9 +1,10 @@
 """Transformer blocks and the cross-modal fusion module.
 
 Port of transmf_ad_tpu/nn/attention.py (`FeedForward`, `Attention`,
-`Transformer`, `CrossTransformerModAvg`). Module names follow the reference
-torch code (`layers.{i}.{0,1}.norm`, `.fn.to_q`, `.fn.to_kv`, `.fn.to_out.0`,
-`.fn.net.{0,3}`), which `transmf_ad_tpu.utils.torch_import` maps.
+`Transformer`, `CrossTransformer`, `CrossTransformerModAvg`). Module names
+follow the reference torch code (`layers.{i}.{0,1}.norm`, `.fn.to_q`,
+`.fn.to_kv`, `.fn.to_out.0`, `.fn.net.{0,3}`), which
+`transmf_ad_tpu.utils.torch_import` maps.
 
 Parameters stay float32; each layer computes in the dtype of its input, as
 the JAX modules do with `dtype` set: Linear casts its weights to it,
@@ -13,6 +14,7 @@ LayerNorm normalises in float32 and casts back. Dropout acts only with
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -121,6 +123,40 @@ class Transformer(nn.Module):
         return self.norm(x)
 
 
+def _encoder_pairs(depth: int, share: bool, *args) -> nn.ModuleList:
+    """`depth` pairs (MRI, PET) of 1-layer Transformers, named
+    layers.{i}.{0,1}; with `share` a pair holds one encoder twice."""
+    pairs = []
+    for _ in range(depth):
+        mri_enc = Transformer(*args)
+        pairs.append(nn.ModuleList(
+            [mri_enc, mri_enc if share else Transformer(*args)]))
+    return nn.ModuleList(pairs)
+
+
+class CrossTransformer(nn.Module):
+    """Joint-context fusion: per depth, each stream attends over
+    concat(mri, pet) through its own 1-layer Transformer, with an outer
+    residual; the PET stream's context holds the MRI tokens already
+    updated. share=True applies one encoder to both streams (its weights
+    appear under both names of the pair). Returns (mri, pet)."""
+
+    def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
+                 mlp_dim: int, dropout: float = 0.0, share: bool = False):
+        super().__init__()
+        self.layers = _encoder_pairs(depth, share, dim, 1, heads, dim_head,
+                                     mlp_dim, dropout)
+
+    def forward(self, mri, pet, train: bool = False, generator=None):
+        kw = dict(train=train, generator=generator)
+        for mri_enc, pet_enc in self.layers:
+            mri = mri_enc(mri, context=torch.cat([mri, pet], dim=1),
+                          **kw) + mri
+            pet = pet_enc(pet, context=torch.cat([mri, pet], dim=1),
+                          **kw) + pet
+        return mri, pet
+
+
 class CrossTransformerModAvg(nn.Module):
     """The paper's fusion module: per depth, a 1-layer Transformer with MRI
     queries over PET context, then one with PET queries over the updated
@@ -130,11 +166,8 @@ class CrossTransformerModAvg(nn.Module):
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
                  mlp_dim: int, dropout: float = 0.0):
         super().__init__()
-        self.layers = nn.ModuleList(
-            nn.ModuleList([
-                Transformer(dim, 1, heads, dim_head, mlp_dim, dropout),
-                Transformer(dim, 1, heads, dim_head, mlp_dim, dropout),
-            ]) for _ in range(depth))
+        self.layers = _encoder_pairs(depth, False, dim, 1, heads, dim_head,
+                                     mlp_dim, dropout)
 
     def forward(self, mri, pet, train: bool = False, generator=None):
         kw = dict(train=train, generator=generator)

@@ -1,12 +1,16 @@
 """Serving: an eval-mode forward closed over a model: volumes -> probabilities.
 
-Port of transmf_ad_tpu/serving.py::make_inference_fn for the adversarial
-paper model. Export and load of a serialized artifact are still to port.
+Port of transmf_ad_tpu/serving.py::make_inference_fn. Export and load of a
+serialized artifact are still to port.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from .models import ADVERSARIAL, model_name
 
 
 def resolve_dtype(dtype, device: torch.device) -> torch.dtype:
@@ -21,12 +25,18 @@ def resolve_dtype(dtype, device: torch.device) -> torch.dtype:
     return dtype
 
 
-def make_inference_fn(model, device="cuda", dtype="auto"):
+def make_inference_fn(model, device="cuda", dtype="auto",
+                      adversarial: Optional[bool] = None):
     """Move `model` to `device` in eval mode and return fn(mri, pet): two
     (B, X, Y, Z) volumes (tensors or arrays) -> (B, 2) float32 softmax
     probabilities on `device`. The forward computes in `dtype` with the
-    model's float32 parameters."""
+    model's float32 parameters. An adversarial model returns (logits, d_mri,
+    d_pet) and the logits are taken from it; any other returns the logits.
+    `adversarial` is read from the registry (`models.ADVERSARIAL`) unless it
+    is given, as it must be for a model the registry does not hold."""
     device = torch.device(device)
+    if adversarial is None:
+        adversarial = model_name(model) in ADVERSARIAL
     dt = resolve_dtype(dtype, device)
     model = model.to(device).eval()
 
@@ -34,7 +44,8 @@ def make_inference_fn(model, device="cuda", dtype="auto"):
     def infer(mri, pet):
         vols = [torch.as_tensor(v).to(device=device, dtype=dt)[..., None]
                 for v in (mri, pet)]
-        logits = model(*vols)[0]
+        out = model(*vols)
+        logits = out[0] if adversarial else out
         return torch.softmax(logits.float(), dim=-1)
 
     return infer

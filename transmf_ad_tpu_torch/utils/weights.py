@@ -63,50 +63,68 @@ def snet_state_dict(params, stats, prefix: str) -> dict:
     return sd
 
 
-def cross_transformer_state_dict(params, prefix: str = "") -> dict:
-    """CrossTransformerModAvg tree (Transformer_{2i}, Transformer_{2i+1},
-    each one layer deep) -> layers.{i}.{0,1}.*"""
+def _transformer_state_dict(tr, base: str) -> dict:
+    """A 1-layer Transformer tree -> {base}.layers.0.{0,1}.*, {base}.norm"""
+    sd: dict = {}
+    attn = tr["Attention_0"]
+    _put(sd, f"{base}.layers.0.0.fn.to_q", _linear(attn["to_q"]))
+    _put(sd, f"{base}.layers.0.0.fn.to_kv", _linear(attn["to_kv"]))
+    _put(sd, f"{base}.layers.0.0.fn.to_out.0", _linear(attn["to_out"]))
+    _put(sd, f"{base}.layers.0.0.norm", _layernorm(tr["LayerNorm_0"]))
+    _put(sd, f"{base}.layers.0.1.norm", _layernorm(tr["LayerNorm_1"]))
+    ff = tr["FeedForward_0"]
+    _put(sd, f"{base}.layers.0.1.fn.net.0", _linear(ff["Dense_0"]))
+    _put(sd, f"{base}.layers.0.1.fn.net.3", _linear(ff["Dense_1"]))
+    _put(sd, f"{base}.norm", _layernorm(tr["LayerNorm_2"]))
+    return sd
+
+
+def cross_transformer_state_dict(params, prefix: str = "",
+                                 share: bool = False) -> dict:
+    """CrossTransformer or CrossTransformerModAvg tree (Transformer_{2i},
+    Transformer_{2i+1}, each one layer deep) -> layers.{i}.{0,1}.*; the
+    tree of CrossTransformer(share=True) holds one Transformer_{i} per
+    depth, which goes under both names of its pair."""
     sd: dict = {}
     pre = f"{prefix}." if prefix else ""
     n = sum(1 for k in params if k.startswith("Transformer_"))
     for t in range(n):
-        tr = params[f"Transformer_{t}"]
-        base = f"{pre}layers.{t // 2}.{t % 2}"
-        attn = tr["Attention_0"]
-        _put(sd, f"{base}.layers.0.0.fn.to_q", _linear(attn["to_q"]))
-        _put(sd, f"{base}.layers.0.0.fn.to_kv", _linear(attn["to_kv"]))
-        _put(sd, f"{base}.layers.0.0.fn.to_out.0", _linear(attn["to_out"]))
-        _put(sd, f"{base}.layers.0.0.norm", _layernorm(tr["LayerNorm_0"]))
-        _put(sd, f"{base}.layers.0.1.norm", _layernorm(tr["LayerNorm_1"]))
-        ff = tr["FeedForward_0"]
-        _put(sd, f"{base}.layers.0.1.fn.net.0", _linear(ff["Dense_0"]))
-        _put(sd, f"{base}.layers.0.1.fn.net.3", _linear(ff["Dense_1"]))
-        _put(sd, f"{base}.norm", _layernorm(tr["LayerNorm_2"]))
+        slots = ((t, 0), (t, 1)) if share else ((t // 2, t % 2),)
+        for i, j in slots:
+            sd.update(_transformer_state_dict(params[f"Transformer_{t}"],
+                                              f"{pre}layers.{i}.{j}"))
     return sd
 
 
 def state_dict_from_jax(variables, model: str = "ad") -> dict:
-    """JAX `{"params", "batch_stats"}` of `model` -> this package's
-    state_dict (float32 CPU tensors), ready for `load_state_dict`."""
-    if model != "ad":
-        raise ValueError(f"state_dict_from_jax: only 'ad' is ported, "
-                         f"got {model!r}")
+    """JAX `{"params", "batch_stats"}` of `model` ('ad', 'transformer' or
+    'transformer_res') -> this package's state_dict (float32 CPU tensors),
+    ready for `load_state_dict`."""
+    if model not in ("ad", "transformer", "transformer_res"):
+        raise ValueError("state_dict_from_jax: ported models are 'ad', "
+                         f"'transformer' and 'transformer_res', got {model!r}")
     params, stats = variables["params"], variables["batch_stats"]
     sd: dict = {}
     for mod in ("mri_cnn", "pet_cnn"):
         sd.update(snet_state_dict(params[mod], stats[mod], mod))
     sd.update(cross_transformer_state_dict(params["fuse_transformer"],
                                            "fuse_transformer"))
-    head, head_st = params["fc_cls"], stats["fc_cls"]
+    head = params["fc_cls"]
+    if model == "transformer_res":  # no BatchNorm, so no batch_stats either
+        for i, slot in enumerate((0, 3, 6)):
+            _put(sd, f"fc_cls.{slot}", _linear(head[f"Dense_{i}"]))
+        return sd
+    head_st = stats["fc_cls"]
     _put(sd, "fc_cls.0", _linear(head["Dense_0"]))
     _put(sd, "fc_cls.1", _bn(head["BatchNorm_0"], head_st["BatchNorm_0"]))
     _put(sd, "fc_cls.4", _linear(head["Dense_1"]))
     _put(sd, "fc_cls.5", _bn(head["BatchNorm_1"], head_st["BatchNorm_1"]))
     _put(sd, "fc_cls.8", _linear(head["Dense_2"]))
-    d, d_st = params["D"], stats["D"]
-    _put(sd, "D.0", _linear(d["Dense_0"]))
-    _put(sd, "D.1", _bn(d["BatchNorm_0"], d_st["BatchNorm_0"]))
-    _put(sd, "D.3", _linear(d["Dense_1"]))
+    if model == "ad":
+        d, d_st = params["D"], stats["D"]
+        _put(sd, "D.0", _linear(d["Dense_0"]))
+        _put(sd, "D.1", _bn(d["BatchNorm_0"], d_st["BatchNorm_0"]))
+        _put(sd, "D.3", _linear(d["Dense_1"]))
     return sd
 
 
