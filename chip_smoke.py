@@ -23,13 +23,19 @@ before the final line:
             its bytes (inputs read once, outputs written once) over 3.35 TB/s
             and its operations over the card's peak for their type; and,
             where one PyTorch call computes the same function, that call's
-            time (a yardstick: nothing in the port calls it for that); then
-            K2 and K10 side by side at 1,573 and 3,146 keys
+            time (a yardstick: nothing in the port calls it for that); for
+            K2 and K8 the variant the call took ("mma" on the tensor cores
+            for bfloat16 at the models' widths, "rows" / "direct" on the CUDA
+            cores otherwise), with edge cases of the tensor-core variants
+            (one and two planes, tiles one below, at and one above their
+            size, weights staged by taps, segments along x; one query, one
+            key, partial chunks, every head dim); then K2 and K10 side by
+            side at 1,573 and 3,146 keys
 4. serving  full-width ModelAd (dim 128, depth 3, 4 heads x 32, mlp 512) in
             bfloat16, random weights and BN statistics from a seeded
             torch.Generator, answers 6 batch-8 requests of 91x109x91
             MRI+PET (the last 3 timed); every serving kernel's launch count
-            must rise
+            must rise, and every K2 launch is of the "mma" variant
 5. check    the same weights at batch 2 in float32 (TF32 off) on the card and
             through the plain path on the CPU: logits, d_mri and d_pet agree
 6. train    the adversarial train step of full-width ModelAd at batch 8,
@@ -47,9 +53,10 @@ before the final line:
             same with every body conv on the band route (band_min_voxels=0)
 8. full-resolution serving  the same model answers 3 batch-6 requests of
             182x218x182 MRI+PET (the last 2 timed): the stem, both stage-2
-            convs (K8) and the lane-vector pools run at full resolution;
-            then card float32 against the CPU at 35x37x33 with every body
-            conv on the band route
+            convs (K8) and the lane-vector pools run at full resolution, and
+            every launch of K8 and K2 is of the "mma" variant (asserted, in
+            phases 9-11 too); then card float32 against the CPU at 35x37x33
+            with every body conv on the band route
 9. full-resolution train  the train step at batch 6, 182x218x182: 2 warm-up
             and 3 timed steps; losses finite, parameters and running
             statistics move, K5, K6, K8 and K9 launched; peak device memory
@@ -72,10 +79,11 @@ The line before the last is a JSON object with one entry per kernel: `ms`,
 `plain_ms`, `bound_ms`, `bound_by` and `library_ms` belong to the bfloat16
 run at the first shape listed for the kernel, `max_abs_err` is the largest
 over all its cases, `launches` its count over the six serving and train
-runs together, each counted from zero. The last line is
+runs together, each counted from zero. Before it a `[time]` line gives the
+seconds each group of phases took. The last line is
 {"ok": true, "device": {...}}.
 
-    python3 chip_smoke.py --only flash_fwd flash_dq
+    python3 chip_smoke.py --only band_conv attention_fwd
 
 runs phases 1-3 for the named kernels alone and stops without the result
 lines: a short first run of a new kernel.
@@ -131,11 +139,13 @@ RES_TRAIN_KERNELS = ("affine_act_pool", "stem_conv_stats", "stem_dw",
                      "affine_act_pool_bwd", "band_conv", "band_dw",
                      "flash_fwd", "flash_dq", "flash_dkv")
 ATTENTION_CALLS = 6  # per forward: depth 3, one per modality
+# the variant every launch of K2 and K8 must take on the bfloat16 paths
+MMA = {"attention_fwd": "mma", "band_conv": "mma"}
 
 
 def _median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Median CUDA-event time of `fn`; fewer repeats of a call that takes
-    over 20 ms, fewer still over 100 ms."""
+    over 5 ms, fewer still over 100 ms."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -144,7 +154,7 @@ def _median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     once = 1e3 * (time.perf_counter() - t0)
     if once > 100.0:
         iters, warmup = 3, 0
-    elif once > 20.0:
+    elif once > 5.0:
         iters, warmup = 7, 0
     for _ in range(warmup):
         fn()
@@ -200,6 +210,10 @@ class Case:
     # bfloat16, or "f32" for elementwise float32 arithmetic)
     work: object
     library: object = None
+    # the same call through the kernel's CUDA-core variant (bfloat16 only):
+    # the design the tensor-core variant replaced, timed in the same run
+    earlier: object = None
+    timed: bool = True  # an edge case is checked and not timed
 
 
 def _by_sample(plain, batched, summed=()):
@@ -237,6 +251,7 @@ CROSSOVER = _crossover_labels()
 def _kernel_cases(g):
     from torch.nn.grad import conv3d_weight
 
+    from transmf_ad_tpu_torch import _build
     from transmf_ad_tpu_torch.ops import (band_conv, flash_attention as fa,
                                           pool3d, pooling, stem)
     from transmf_ad_tpu_torch.ops.flash_attention import (attention_reference,
@@ -381,6 +396,34 @@ def _kernel_cases(g):
         out = F.scaled_dot_product_attention(q, k, v, scale=scale)
         return torch.autograd.grad(out, (q, k, v), gg)
 
+    def band_direct(stats):
+        """K8's "direct" variant on the arguments of `_band_forward`,
+        whatever their dtype"""
+        def run(x, w):
+            b, X, Y, Z, cin = x.shape
+            cout = w.shape[-1]
+            out = torch.empty(b, X, Y, Z, cout, dtype=x.dtype, device="cuda")
+            rows = band_conv._blocks_fn()(b, X, Y, Z, cin, cout, 0)
+            part = torch.empty(2, rows, cout, device="cuda") if stats else None
+            st = torch.empty(2, cout, device="cuda") if stats else None
+            band_conv.BAND_CONV.launch(
+                x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                part.data_ptr() if stats else None,
+                st.data_ptr() if stats else None, b, X, Y, Z, cin, cout,
+                int(stats), _build.DTYPE_CODES[x.dtype], 0, variant="direct")
+            return (out, st) if stats else out
+        return run
+
+    def attn_rows(q, k, v, scale):
+        """K2's "rows" variant, whatever the dtype"""
+        out = torch.empty_like(q)
+        b, h, n, d = q.shape
+        fa.ATTENTION.launch(q.device, q.data_ptr(), k.data_ptr(),
+                            v.data_ptr(), out.data_ptr(), b * h, n,
+                            k.shape[2], d, float(scale),
+                            _build.DTYPE_CODES[q.dtype], 0, variant="rows")
+        return out
+
     max_ref = functools.partial(pool3d.affine_act_pool_reference, mode="max")
     avg_ref = functools.partial(pool3d.affine_act_pool_reference, mode="avg")
     exact = [_elem(0.0, 0.0)]
@@ -423,10 +466,11 @@ def _kernel_cases(g):
                          _randn(g, 8, 150, 128).to(dt)), *sums, token_ops),
         Case("attention_fwd", "(32,150,32)", fused_attention,
              attention_reference, attn(8, 4, 150, 32), *sums, attn_ops,
-             lib_attn),
+             lib_attn, attn_rows),
         Case("attention_fwd", CROSSOVER["attention_fwd", FLASH_SHAPE[2]],
              fused_attention, attention_reference,
-             attn(2, *FLASH_SHAPE[1:4]), *sums, attn_ops, lib_attn),
+             attn(2, *FLASH_SHAPE[1:4]), *sums, attn_ops, lib_attn,
+             attn_rows),
         Case("stem_conv", "(8,91,109,91)->C32", stem.stem_conv,
              stem._conv_reference, stem_in(BATCH, VOLUME), *conv, conv_ops,
              lib_stem),
@@ -513,20 +557,63 @@ def _kernel_cases(g):
              attn_ops, lib_attn),
         Case("attention_fwd", CROSSOVER["attention_fwd", fm],
              fused_attention, attention_reference, attn(fb, fh, fn, fd, fm),
-             *sums, attn_ops, lib_attn)]
+             *sums, attn_ops, lib_attn, attn_rows)]
     # K8 and K9 at the stage-2 volume of a 182x218x182 input: the two convs
     # and their input gradients (Cin and Cout swapped)
     for cin, cout in ((32, 32), (32, 64), (64, 32)):
         shape = f"(6,91,109,91) {cin}->{cout}"
         cases.append(Case("band_conv", shape, band_fwd,
                           band_conv.band_conv_reference, band_in(cin, cout),
-                          *conv, conv_ops, lib_band))
+                          *conv, conv_ops, lib_band, band_direct(False)))
         if cin == 32:
             cases.append(Case("band_conv", shape + " + (2,C) sums",
                               band_fwd_stats,
                               band_conv.band_conv_stats_reference,
                               band_in(cin, cout), *conv_stats, conv_ops,
-                              lib_band))
+                              lib_band, band_direct(True)))
+    # edge cases of K8 "mma" (float32 takes "direct" at the same shapes): one
+    # plane and two (the ring's edges), Y and Z one below, at and one above
+    # a tile, batch 2, 64 -> 32 (the wgmma kernel's other width), 64 -> 64
+    # and 128 -> 128 (the mma.sync kernel, weights staged 9 taps and 1 tap
+    # at a time; two blocks of output channels), 16 -> 8 (one partly empty
+    # block of output channels), three segments along x
+    def band_small(b, volume, cin, cout):
+        def make(dt):
+            return (_randn(g, b, *volume, cin).to(dt),
+                    _randn(g, 3, 3, 3, cin, cout,
+                           scale=(13.5 * cin) ** -0.5).to(dt))
+        return make
+
+    for b, volume, cin, cout in ((1, (1, 9, 17), 32, 32),
+                                 (1, (2, 8, 16), 32, 32),
+                                 (1, (3, 7, 15), 16, 8),
+                                 (2, (3, 9, 17), 32, 64),
+                                 (1, (3, 9, 17), 64, 32),
+                                 (1, (4, 10, 20), 64, 64),
+                                 (1, (3, 9, 18), 128, 128),
+                                 (1, (20, 9, 17), 16, 8)):
+        shape = f"({b},{','.join(map(str, volume))}) {cin}->{cout}"
+        cases += [
+            Case("band_conv", shape, band_fwd, band_conv.band_conv_reference,
+                 band_small(b, volume, cin, cout), *conv, conv_ops,
+                 timed=False),
+            Case("band_conv", shape + " + (2,C) sums", band_fwd_stats,
+                 band_conv.band_conv_stats_reference,
+                 band_small(b, volume, cin, cout), *conv_stats, conv_ops,
+                 timed=False)]
+    # edge cases of K2 "mma" (float32 takes "rows"): one query, one key, a
+    # partial first chunk, keys and queries one below, at and one above a
+    # chunk and a block, every head dim; then the full-resolution path's
+    # own shape, batch 6
+    for b, h, n, d, m in ((1, 2, 1, 32, 70), (1, 2, 40, 32, 1),
+                          (1, 2, 70, 32, 17), (1, 2, 63, 32, 63),
+                          (1, 2, 64, 32, 64), (1, 2, 65, 32, 65),
+                          (2, 2, 100, 16, 100), (2, 2, 100, 64, 130),
+                          (1, 2, 100, 128, 130), (fb, fh, fn, fd, fn)):
+        cases.append(Case("attention_fwd", f"({b * h},{n},{m},{d})",
+                          fused_attention, attention_reference,
+                          attn(b, h, n, d, m), *sums, attn_ops, lib_attn,
+                          attn_rows if n == fn else None, timed=n == fn))
     for cin, cout in ((32, 32), (32, 64)):
         for with_ab in (True, False):
             cases.append(Case(
@@ -568,8 +655,11 @@ def _bound(case, args, outs, tag):
 def check_kernels(results, only=()):
     """Phase 3. Fills `results` per kernel name and returns the bfloat16
     kernel time of every case by (name, label)."""
+    from transmf_ad_tpu_torch.ops import KERNELS
+
     g = torch.Generator(device="cuda").manual_seed(1)
     times = {}
+    by_name = {k.name: k for k in KERNELS}
     for case in _kernel_cases(g):
         name, label = case.name, case.label
         if only and name not in only:
@@ -577,8 +667,10 @@ def check_kernels(results, only=()):
         for dt, dtols in ((torch.float32, case.tol32),
                           (torch.bfloat16, case.tol16)):
             args = case.make(dt)
+            by_name[name].reset()
             outs, refs = case.kern(*args), case.plain(*args)
             torch.cuda.synchronize()
+            took = "".join(f' "{v}"' for v in by_name[name].by_variant)
             outs = outs if isinstance(outs, tuple) else (outs,)
             refs = refs if isinstance(refs, tuple) else (refs,)
             for o, r in zip(outs, refs, strict=True):
@@ -592,25 +684,35 @@ def check_kernels(results, only=()):
             tag = str(dt).replace("torch.", "")
             bound_ms, bound_by = _bound(case, args, outs, tag)
             del refs
-            ms = _median_ms(lambda: case.kern(*args))
-            plain_ms = _median_ms(lambda: case.plain(*args))
-            library_ms = (None if case.library is None
-                          else _median_ms(lambda: case.library(*args)))
             verdict = "ok" if ok else "FAIL"
             tol_s = ", ".join(f"{k} rtol={r:.3g} atol={a:.3g}"
                               for k, r, a in dtols)
-            lib_s = "none" if library_ms is None else f"{library_ms:.4f} ms"
-            print(f"[kernel] {name} {label} {tag}: max_abs_err="
-                  f"{[float(f'{e:.3g}') for e in errs]} ({tol_s}) {verdict}; "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                  f"{bound_ms:.4f} ms by {bound_by}, library call {lib_s}",
-                  flush=True)
+            line = (f"[kernel] {name}{took} {label} {tag}: max_abs_err="
+                    f"{[float(f'{e:.3g}') for e in errs]} ({tol_s}) {verdict}")
             if not ok:
+                print(line, flush=True)
                 raise AssertionError(f"{name} {label} {tag} disagrees with "
                                      f"its plain version: {errs}")
+            if case.timed:
+                ms = _median_ms(lambda: case.kern(*args))
+                plain_ms = _median_ms(lambda: case.plain(*args))
+                library_ms = (None if case.library is None
+                              else _median_ms(lambda: case.library(*args)))
+                lib_s = ("none" if library_ms is None
+                         else f"{library_ms:.4f} ms")
+                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                         f"bound {bound_ms:.4f} ms by {bound_by}, library "
+                         f"call {lib_s}")
+                if case.earlier is not None and dt == torch.bfloat16:
+                    was = _median_ms(lambda: case.earlier(*args))
+                    line += (f", CUDA-core variant {was:.4f} ms "
+                             f"({was / ms:.1f}x)")
+            else:
+                line += "; an edge case, not timed"
+            print(line, flush=True)
             r = results.setdefault(name, {"max_abs_err": 0.0})
             r["max_abs_err"] = max(r["max_abs_err"], *errs)
-            if dt == torch.bfloat16:
+            if dt == torch.bfloat16 and case.timed:
                 times[name, label] = ms
                 if "ms" not in r:  # main-path shape
                     r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -660,11 +762,12 @@ def _require_launches(tag, launches, kernels, exact):
 
 def serve(card, tag="serving", batch=BATCH, volume=VOLUME, warmup=WARMUP,
           n_requests=REQUESTS, kernels=SERVING_KERNELS, model_name="ad",
-          exact=None):
+          exact=None, variants=MMA):
     """Serve `n_requests` requests of host arrays through
     `make_inference_fn`; returns the model, a float32 CPU copy of it and
     the launch counts of this run, counted from zero. `exact`: launch
-    counts per request that must hold exactly."""
+    counts per request that must hold exactly. `variants`: the one variant
+    each of these kernels may have launched."""
     from transmf_ad_tpu_torch.models import build_model
     from transmf_ad_tpu_torch.ops import reset_launch_counts
     from transmf_ad_tpu_torch.serving import make_inference_fn
@@ -695,13 +798,15 @@ def serve(card, tag="serving", batch=BATCH, volume=VOLUME, warmup=WARMUP,
     launches = _launches()
     _require_launches(tag, launches, kernels,
                       {n: c * n_requests for n, c in (exact or {}).items()})
+    took = _require_variants(tag, variants)
     steady = times[warmup:]
     vols = batch * len(steady) / sum(steady)
     print(f"[{tag}] {type(model).__name__} dim=128 depth=3 bf16, batch "
           f"{batch} x "
           f"{volume} MRI+PET, {len(steady)} requests after {warmup} warm-up: "
           f"{vols:.2f} vols/s ({1e3 * np.median(steady):.2f} ms/request "
-          f"median) on {card}; launches {launches}", flush=True)
+          f"median) on {card}; launches {launches}, variants {took}",
+          flush=True)
     print(f"[{tag}] request ms: {[round(1e3 * t, 3) for t in times]}",
           flush=True)
     print(f"[{tag}] probabilities of the last request: "
@@ -775,6 +880,21 @@ def _launches():
     return {k.name: k.launches for k in KERNELS}
 
 
+def _require_variants(tag, variants):
+    """Every launch of each kernel in `variants` since the counts were reset
+    was of the variant named there."""
+    from transmf_ad_tpu_torch.ops import KERNELS
+
+    for k in KERNELS:
+        want = variants.get(k.name)
+        if want is not None and k.launches \
+                and k.by_variant != {want: k.launches}:
+            raise AssertionError(
+                f"{tag}: {k.name} launched {k.by_variant} of {k.launches}, "
+                f"expected only \"{want}\"")
+    return {k.name: dict(k.by_variant) for k in KERNELS if k.by_variant}
+
+
 def _snapshot(model):
     return {k: v.detach().float().cpu().clone()
             for k, v in model.state_dict().items()}
@@ -782,10 +902,11 @@ def _snapshot(model):
 
 def train(card, tag="train", batch_size=BATCH, volume=VOLUME,
           warmup=TRAIN_WARMUP, steps=TRAIN_STEPS, kernels=TRAIN_KERNELS,
-          model_name="ad", exact=None):
+          model_name="ad", exact=None, variants=MMA):
     """The train step at full width: ms/step, volumes/s, every loss, the
     launch counts of this run (counted from zero) and its peak memory.
-    `exact`: launch counts per step that must hold exactly."""
+    `exact`: launch counts per step that must hold exactly. `variants`: the
+    one variant each of these kernels may have launched."""
     from transmf_ad_tpu_torch.data.transforms import AugmentConfig
     from transmf_ad_tpu_torch.models import ADVERSARIAL, build_model
     from transmf_ad_tpu_torch.ops import reset_launch_counts
@@ -823,6 +944,7 @@ def train(card, tag="train", batch_size=BATCH, volume=VOLUME,
     launches = _launches()
     _require_launches(tag, launches, kernels,
                       {n: c * len(batches) for n, c in (exact or {}).items()})
+    took = _require_variants(tag, variants)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{tag}: non-finite losses {losses}")
     after = _snapshot(model)
@@ -838,7 +960,7 @@ def train(card, tag="train", batch_size=BATCH, volume=VOLUME,
           f"dropout 0.5, Adam 1e-4: {len(steady)} steps after {warmup} "
           f"warm-up: {batch_size * len(steady) / sum(steady):.2f} vols/s "
           f"({1e3 * np.median(steady):.2f} ms/step median) on {card}; "
-          f"launches {launches}", flush=True)
+          f"launches {launches}, variants {took}", flush=True)
     print(f"[{tag}] step ms: {[round(1e3 * t, 3) for t in times]}",
           flush=True)
     print(f"[{tag}] losses: {losses}", flush=True)
@@ -990,10 +1112,15 @@ def main(argv=None) -> int:
     from transmf_ad_tpu_torch import _build
     from transmf_ad_tpu_torch.ops import KERNELS
 
-    t0 = time.perf_counter()
+    laps = [("start", time.perf_counter())]
+
+    def lap(name):
+        laps.append((name, time.perf_counter()))
+
     lib = _build.build()
     _build.library()
-    print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s",
+    lap("build")
+    print(f"[build] {lib.name} in {laps[-1][1] - laps[0][1]:.1f} s",
           flush=True)
     for line in lib.with_suffix(".log").read_text().splitlines():
         if "Compiling entry" in line or "registers" in line:
@@ -1001,6 +1128,7 @@ def main(argv=None) -> int:
 
     results: dict = {}
     times = check_kernels(results, only)
+    lap("kernel checks")
     if only:
         print(f"chip_smoke: --only {' '.join(only)}: phases 4-11 not run, "
               "no result", flush=True)
@@ -1014,9 +1142,12 @@ def main(argv=None) -> int:
     cross_check(model, reference)
     del model, reference
     torch.cuda.empty_cache()
+    lap("serving + check")
     trained = train(card)
+    lap("train")
     train_check()
     train_check(band_min_voxels=0)
+    lap("train checks")
     model, reference, full_serving = serve(
         card, "serving, full resolution", FULL_BATCH, FULL_VOLUME,
         FULL_WARMUP, FULL_REQUESTS, FULL_SERVING_KERNELS)
@@ -1024,9 +1155,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     band_cross_check(reference)
     del reference
+    lap("full-resolution serving + check")
     full_trained = train(card, "train, full resolution", FULL_BATCH,
                          FULL_VOLUME, FULL_TRAIN_WARMUP, FULL_TRAIN_STEPS,
                          FULL_TRAIN_KERNELS)
+    lap("full-resolution train")
     no_k2 = {"attention_fwd": 0}
     tag = "serving, full resolution, transformer_res"
     model, reference, res_serving = serve(
@@ -1037,19 +1170,26 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     flash_cross_check(reference)
     del reference
+    lap("transformer_res serving + check")
     res_trained = train(
         card, "train, full resolution, transformer_res", FULL_BATCH,
         FULL_VOLUME, FULL_TRAIN_WARMUP, FULL_TRAIN_STEPS, RES_TRAIN_KERNELS,
         "transformer_res",
         {n: ATTENTION_CALLS for n in ("flash_fwd", "flash_dq", "flash_dkv")}
         | no_k2)
+    lap("transformer_res train")
     train_check("transformer_res", RES_CHECK_VOLUME)
+    lap("transformer_res train check")
     runs = {"serving": serving, "train": trained,
             "serving, full resolution": full_serving,
             "train, full resolution": full_trained,
             tag: res_serving,
             "train, full resolution, transformer_res": res_trained}
     print(f"[launches] {runs}", flush=True)
+    spent = ", ".join(f"{name} {t - t_before:.1f}" for (_, t_before), (name, t)
+                      in zip(laps, laps[1:]))
+    print(f"[time] seconds: {spent}; all {laps[-1][1] - laps[0][1]:.1f}",
+          flush=True)
 
     kernels = [{"name": k.name, "route": "cuda", "source": k.source,
                 "replaces": k.replaces,

@@ -354,6 +354,63 @@ def test_kernels_match_plain_on_cuda(cuda):
 
 
 @pytest.mark.cuda
+def test_tensor_core_variants_on_cuda(cuda):
+    """K8 "mma" and K2 "mma" at the edges of their tiling, each against its
+    plain version: one and two planes (the ring of plane halos), Y and Z one
+    below, at and one above a tile, batch 2, 32 and 64 input channels (the
+    wgmma kernel), 64 -> 64 and 128 -> 128 (the mma.sync kernel, weights
+    staged by taps, two blocks of output channels), 16 -> 8, three segments
+    along x, with and without the sums; one query, one key, partial chunks,
+    queries and keys around a chunk and a block, every head dim. bfloat16
+    takes the tensor-core variant, float32 the CUDA-core one, and the count
+    per variant says so."""
+    def r(*s):
+        return torch.randn(*s, generator=cuda, device="cuda")
+
+    for b, vol, cin, cout in ((1, (1, 9, 17), 32, 32), (1, (2, 8, 16), 32, 32),
+                              (1, (3, 7, 15), 16, 8), (2, (3, 9, 17), 32, 64),
+                              (1, (3, 9, 17), 64, 32), (1, (4, 10, 20), 64, 64),
+                              (1, (3, 9, 18), 128, 128),
+                              (1, (20, 9, 17), 16, 8)):
+        x, w = r(b, *vol, cin), r(3, 3, 3, cin, cout) * (13.5 * cin) ** -0.5
+        for dtype, want in ((torch.bfloat16, "mma"),
+                            (torch.float32, "direct")):
+            assert band_conv.variant(dtype, cin, cout) == want
+            xd, wd = x.to(dtype), w.to(dtype)
+            band_conv.BAND_CONV.reset()
+            y = band_conv._band_forward(xd, wd, False)
+            ys, st = band_conv._band_forward(xd, wd, True)
+            torch.cuda.synchronize()
+            assert band_conv.BAND_CONV.by_variant == {want: 2}
+            ref, ref_st = band_conv.band_conv_stats_reference(xd, wd)
+            what = f"band_conv {want} {b} {vol} {cin}->{cout}"
+            _match(y, ref, "v", dtype, what)
+            _match(ys, ref, "v", dtype, what + " with sums")
+            _match(st, ref_st, "s", dtype, what + " sums")
+    for bh, n, m, d in ((2, 1, 70, 32), (2, 40, 1, 32), (2, 70, 17, 32),
+                        (2, 63, 63, 32), (2, 64, 64, 32), (2, 65, 65, 32),
+                        (3, 100, 100, 16), (3, 100, 130, 64),
+                        (2, 100, 130, 128), (24, 1573, 1573, 32)):
+        q, k, v = r(1, bh, n, d), r(1, bh, m, d), r(1, bh, m, d)
+        for dtype, want in ((torch.bfloat16, "mma"), (torch.float32, "rows")):
+            assert flash.attention_variant(dtype, d) == want
+            flash.ATTENTION.reset()
+            args = (q.to(dtype), k.to(dtype), v.to(dtype), d ** -0.5)
+            out = fused_attention(*args)
+            torch.cuda.synchronize()
+            assert flash.ATTENTION.by_variant == {want: 1}
+            _match(out, attention_reference(*args), "v", dtype,
+                   f"attention_fwd {want} {(bh, n, m, d)}")
+    # a head dim the tensor-core variant does not take stays on the CUDA cores
+    q = r(1, 2, 37, 48).bfloat16()
+    flash.ATTENTION.reset()
+    out = fused_attention(q, q, q, 0.2)
+    assert flash.ATTENTION.by_variant == {"rows": 1}
+    _match(out, attention_reference(q, q, q, 0.2), "v", torch.bfloat16,
+           "attention_fwd rows D=48")
+
+
+@pytest.mark.cuda
 def test_backward_launches_kernels_on_cuda(cuda):
     """Autograd through the pool entries, the training stem, the band conv
     and flash attention reaches K7, K6, K8/K9 and K11/K12 and gives the

@@ -10,7 +10,9 @@ the plain PyTorch versions.
 
 Each kernel is described by a `Kernel`: its C entry, its argument types, the
 source it lives in, the TPU kernel it replaces, and a plain-integer count of
-its launches, which rises by one per launch and nowhere else.
+its launches, which rises by one per launch and nowhere else. A kernel with
+more than one variant (K2, K8: tensor cores or CUDA cores, by dtype and shape)
+also counts its launches per variant.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-split-compile", "0", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -125,6 +127,8 @@ class Kernel:
     source: str  # path in the repository
     replaces: str  # file:line of the TPU kernel's pallas_call
     launches: int = 0
+    # launches per variant name, for the kernels that have variants
+    by_variant: dict = dataclasses.field(default_factory=dict)
 
     @functools.cached_property
     def _fn(self):
@@ -133,8 +137,9 @@ class Kernel:
         fn.restype = ctypes.c_int
         return fn
 
-    def launch(self, device: torch.device, *args) -> None:
-        """Launch on `device`'s current stream; raise if it was refused."""
+    def launch(self, device: torch.device, *args, variant=None) -> None:
+        """Launch on `device`'s current stream; raise if it was refused.
+        `variant` names the variant that `args` asks for, for its count."""
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = self._fn(*args, stream)
@@ -142,6 +147,12 @@ class Kernel:
             msg = library().transmf_error_string(err).decode()
             raise RuntimeError(f"{self.name}: launch failed: {msg} ({err})")
         self.launches += 1
+        if variant is not None:
+            self.by_variant[variant] = self.by_variant.get(variant, 0) + 1
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.by_variant.clear()
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> int:

@@ -15,7 +15,55 @@
 // call is 0.60 TFLOP against 1.0 GB of bf16 traffic; on the CUDA cores that is
 // tens of milliseconds of FMAs against a third of a millisecond of HBM time.
 //
-// K8 design: a block owns one x-plane tile of kFY x kFZ voxels and up to 64
+// K8 has two variants, chosen by the caller from the dtype and the channel
+// counts alone (ops/band_conv.py::variant) and refused here when they do not
+// fit.
+//
+// K8 "mma" (bfloat16, Cin % 16 == 0, Cin <= 128, Cout % 8 == 0): an implicit
+// GEMM on the tensor cores, M = voxels, N = Cout, K = 27 x Cin, bfloat16
+// operands and float32 accumulators, rounded once: the same arithmetic as the
+// direct kernel, since a bfloat16 product is exact in float32. A block of 8
+// warps owns a column of kMY x kMZ = 8 x 16 voxel tiles of one sample (a
+// segment of x) and up to 64 output channels, and marches along x:
+//   - the zero-padded halo of each input plane tile, (kMY + 2) x (kMZ + 2)
+//     voxels, sits in shared memory as bfloat16, channels-last, with the voxel
+//     stride padded to Cin + 8 (an odd multiple of 16 bytes). There is no
+//     im2col: a tap (dy, dz) is a shifted view of the halo, and ldmatrix takes
+//     one row address per lane, so the 16 rows of an A fragment (16 voxels
+//     along z) point at (y + dy, z + dz, c0) without bank conflicts;
+//   - a ring of four halos: planes x-1, x, x+1 feed the MMAs of output plane
+//     x while plane x+2 arrives by cp.async (16 bytes a thread, zero-filled
+//     outside the volume), so each input plane tile is read once per column
+//     (1.4x with the halo) instead of three times;
+//   - epilogue per plane: the four lanes of a quad trade their channel pairs
+//     of four 8-channel tiles, so that each stores the 16 bytes of one tile
+//     and the quad 64 contiguous bytes of a voxel: whole 32-byte sectors
+//     (stores of 8 bytes a lane, half a sector each, cost a fifth of the
+//     kernel's time at 64 output channels), masked on the ragged edge. With
+//     statistics a thread adds its float32 accumulators (valid voxels only,
+//     before rounding) per channel over the whole march, lanes fold by
+//     shuffles and warps through shared memory in a fixed order to one
+//     (2, couts) partial per block, and reduce_rows adds the blocks: no float
+//     atomics, so the sums repeat bit for bit.
+// Two kernels carry it. At the models' widths (Cin 32 or 64 with the block's
+// (27, Cin, 64 or 32) weights resident beside the ring) band_conv_wgmma_kernel,
+// compiled for its Cin: wgmma.m64nNk16 with A from registers and the weights
+// as the shared-memory operand, the products of a plane one straight run at
+// constant offsets (its own note below). Everywhere else (other Cin; 64 -> 64
+// at 221 KB and 128 channels, whose weights are staged 9, 3 or 1 taps at a
+// time, again per output plane) band_conv_mma_kernel on mma.sync.m16n8k16: a
+// warp owns 16 (or, at 64 output channels, 2 x 16) voxels x 32 output
+// channels and per (tap, 16 input channels) runs one ldmatrix for A per 16
+// voxels and two ldmatrix.trans for B, from weights whose 16-byte pieces are
+// XOR-swizzled by their row. With Cin and the staging known only at run time,
+// the index arithmetic of each tap and every warp's own loads of the same
+// weights set that kernel's time, not the tensor cores (ablate_band_conv.py,
+// PERF.md): it is the general case, not the fast one.
+// Bound: operations; what the design leaves on the table is named in PERF.md.
+//
+// K8 "direct" (float32, where the card-vs-CPU checks hold it to 1e-4, which
+// neither bfloat16 nor TF32 products give; and bfloat16 with other channel
+// counts): a block owns one x-plane tile of kFY x kFZ voxels and up to 64
 // output channels. It walks the three input planes and, within each, chunks
 // of kCK input channels: the zero-padded halo of the chunk goes to shared
 // memory as float32, channel-major (one odd-strided plane per channel, so the
@@ -50,7 +98,11 @@
 // input channel, 36 FMAs for four shared-memory loads. A block writes its
 // slice once, as row g of the partials, and reduce_rows adds the G rows in a
 // fixed order. Bound: operations, as K8.
+#include <initializer_list>
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace transmf {
 namespace {
@@ -64,6 +116,22 @@ constexpr int kFP = 8;   // z outputs per thread
 constexpr int kCK = 16;  // input channels per chunk
 constexpr int kHZ = kFZ + 2;
 constexpr int kPlane = (kFY + 2) * kHZ + 1;  // odd stride between channels
+
+// K8 "mma" tiling
+constexpr int kMY = 8;    // tile rows, one 16-voxel MMA row tile each
+constexpr int kMZ = 16;   // tile columns
+constexpr int kMHZ = kMZ + 2;
+constexpr int kMHalo = (kMY + 2) * kMHZ;  // voxels of a plane tile's halo
+constexpr int kRing = 4;                  // halos in flight
+constexpr int kMaxSmem = 232448;          // bytes a block may use (227 KB)
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kGroup = 4;                 // products per wgmma group
+
+// Elements of the wgmma kernel's weights in shared memory: whole blocks of 64
+// k for each of the block's output channels.
+__host__ __device__ constexpr int wgmma_weight_elems(int cin, int cout_block) {
+  return (27 * cin + 63) / 64 * 64 * cout_block;
+}
 
 // K9 tiling
 constexpr int kWY = 8;
@@ -240,6 +308,459 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// What the two K8 "mma" kernels share: where a block works, how a plane's
+// halo arrives, and how the statistics fold.
+
+// Grid: (cout block, b, x segment, y tile, z tile), z tile fastest.
+struct MmaBlock {
+  int64_t spatial;  // blocks per block of output channels: rows of `partial`
+  int64_t sblk, b;  // this block's row of them, its sample
+  int y0, z0, co0;  // first voxel row, column and output channel
+  int xs, xe;       // its planes
+};
+
+__device__ __forceinline__ MmaBlock mma_block(int B, int X, int nyt, int nzt,
+                                              int segs, int seg_len,
+                                              int cout_block) {
+  MmaBlock k;
+  k.spatial = static_cast<int64_t>(B) * segs * nyt * nzt;
+  k.sblk = blockIdx.x % k.spatial;
+  k.co0 = static_cast<int>(blockIdx.x / k.spatial) * cout_block;
+  k.z0 = static_cast<int>(k.sblk % nzt) * kMZ;
+  k.y0 = static_cast<int>((k.sblk / nzt) % nyt) * kMY;
+  const int64_t tiles = static_cast<int64_t>(nzt) * nyt;
+  k.xs = static_cast<int>((k.sblk / tiles) % segs) * seg_len;
+  k.xe = min(X, k.xs + seg_len);
+  k.b = k.sblk / (tiles * segs);
+  return k;
+}
+
+// The zero-padded halo of plane p (-1 .. X) of the block's tile goes to slot
+// (p + 1) % kRing of `halo` by cp.async, zeros outside the volume. CS: voxel
+// stride of a halo.
+__device__ __forceinline__ void load_plane(__nv_bfloat16* halo,
+                                           const __nv_bfloat16* x,
+                                           const MmaBlock& k, int p, int X,
+                                           int Y, int Z, int Cin, int CS) {
+  __nv_bfloat16* dst = halo + ((p + 1) & (kRing - 1)) * kMHalo * CS;
+  const bool inside = p >= 0 && p < X;
+  const int cpv = Cin / 8;  // 16-byte pieces per voxel
+  for (int i = threadIdx.x; i < kMHalo * cpv; i += kThreads) {
+    const int vox = i / cpv, c = i % cpv;
+    const int gy = k.y0 + vox / kMHZ - 1, gz = k.z0 + vox % kMHZ - 1;
+    const bool real = inside && gy >= 0 && gy < Y && gz >= 0 && gz < Z;
+    const __nv_bfloat16* src =
+        real ? x + (((k.b * X + p) * Y + gy) * Z + gz) * Cin + c * 8 : x;
+    cp_async16(dst + vox * CS + c * 8, src, real);
+  }
+}
+
+// One C fragment (voxels g and g + 8 of a row, the lane's 2 channels) into
+// the lane's sums; ok0, ok1: the two voxels lie inside the volume.
+__device__ __forceinline__ void add_stats(float (&s)[2], float (&ss)[2],
+                                          const float* c, bool ok0, bool ok1) {
+  if (ok0) {
+    s[0] += c[0];
+    s[1] += c[1];
+    ss[0] = fmaf(c[0], c[0], ss[0]);
+    ss[1] = fmaf(c[1], c[1], ss[1]);
+  }
+  if (ok1) {
+    s[0] += c[2];
+    s[1] += c[3];
+    ss[0] = fmaf(c[2], c[2], ss[0]);
+    ss[1] = fmaf(c[3], c[3], ss[1]);
+  }
+}
+
+// The block's sums: lanes fold their N tiles (the first is tile `tile0` of
+// the block) over the quads by shuffles, warps through `red`, [rows][2][kCB]
+// floats of shared memory that nothing else uses any more, in a fixed order,
+// into the block's row of `partial`. `row`: this warp's among `rows`. Sums of
+// couts past Cout are 0 (zero weights) and are not written.
+template <int N>
+__device__ __forceinline__ void fold_stats(float* red, const float (&s)[N][2],
+                                           const float (&ss)[N][2], int row,
+                                           int rows, int tile0, int kCB,
+                                           float* partial, const MmaBlock& k,
+                                           int Cout) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int nj = 0; nj < N; ++nj) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float a = s[nj][e], q = ss[nj][e];
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        a += __shfl_xor_sync(kFull, a, o);
+        q += __shfl_xor_sync(kFull, q, o);
+      }
+      if (lane < 4) {
+        const int col = (tile0 + nj) * 8 + 2 * lane + e;
+        red[(row * 2 + 0) * kCB + col] = a;
+        red[(row * 2 + 1) * kCB + col] = q;
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * kCB; i += kThreads) {
+    const int set = i / kCB, col = i % kCB;
+    float sum = 0.f;
+    for (int r = 0; r < rows; ++r) sum += red[(r * 2 + set) * kCB + col];
+    if (k.co0 + col < Cout) {
+      partial[(set * k.spatial + k.sblk) * Cout + k.co0 + col] = sum;
+    }
+  }
+}
+
+// K8 "mma", the general kernel on mma.sync. NT: 8-channel output tiles per
+// block (4 or 8). `taps`: weights staged at a time (27: once per block).
+template <int NT, bool kStats>
+__global__ void __launch_bounds__(kThreads, 1)
+    band_conv_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                         const __nv_bfloat16* __restrict__ w,
+                         __nv_bfloat16* __restrict__ out,
+                         float* __restrict__ partial, int B, int X, int Y,
+                         int Z, int Cin, int Cout, int nyt, int nzt, int segs,
+                         int seg_len, int taps) {
+  constexpr int kCB = 8 * NT;          // output channels per block
+  constexpr int kWarpsN = NT / 4;      // a warp owns 4 of the NT tiles
+  constexpr int kWarpsM = 8 / kWarpsN;
+  constexpr int kWM = kMY / kWarpsM;   // 16-voxel row tiles per warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int CS = Cin + 8;  // voxel stride of a halo
+  __nv_bfloat16* halo = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* wsm = halo + kRing * kMHalo * CS;  // [taps][Cin][kCB]
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
+
+  const MmaBlock k = mma_block(B, X, nyt, nzt, segs, seg_len, kCB);
+  const int y0 = k.y0, z0 = k.z0, co0 = k.co0;
+
+  // the piece (row, c) of a stage's [rows][NT] weights sits at piece
+  // c ^ swizzle(row): eight rows of one ldmatrix then hit eight bank groups
+  auto load_weights = [&](int tap0, int count) {
+    for (int i = tid; i < count * Cin * NT; i += kThreads) {
+      const int row = i / NT, c = i % NT;
+      const int co = co0 + c * 8;
+      const bool real = co < Cout;
+      const __nv_bfloat16* src =
+          real ? w + (static_cast<int64_t>(tap0) * Cin + row) * Cout + co : w;
+      const int sw = NT == 8 ? (row & 7) : ((row >> 1) & 3);
+      cp_async16(wsm + (row * NT + (c ^ sw)) * 8, src, real);
+    }
+  };
+
+  const bool staged = taps < 27;
+  if (!staged) load_weights(0, 27);
+  for (int p = k.xs - 1; p <= k.xs + 1; ++p) {
+    load_plane(halo, x, k, p, X, Y, Z, Cin, CS);
+    cp_async_commit();
+  }
+
+  // lane offsets of the ldmatrix rows: A (voxel lane % 16 of the row tile, 8
+  // channels further for the upper lanes), B (input channel row, swizzled
+  // piece of each of the warp's two pairs of output tiles)
+  int a_lane[kWM];
+#pragma unroll
+  for (int mi = 0; mi < kWM; ++mi) {
+    a_lane[mi] = ((wm * kWM + mi) * kMHZ + (lane & 15)) * CS + (lane >> 4) * 8;
+  }
+  const int b_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int b_sw = NT == 8 ? (lane & 7) : ((lane >> 1) & 3);
+  int b_lane[2];
+#pragma unroll
+  for (int np = 0; np < 2; ++np) {
+    b_lane[np] = (b_row * NT + ((wn * 4 + np * 2 + (lane >> 4)) ^ b_sw)) * 8;
+  }
+
+  float s[4][2], ss[4][2];
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj) {
+    s[nj][0] = s[nj][1] = ss[nj][0] = ss[nj][1] = 0.f;
+  }
+
+  for (int xx = k.xs; xx < k.xe; ++xx) {
+    load_plane(halo, x, k, xx + 2, X, Y, Z, Cin, CS);
+    cp_async_commit();
+    cp_async_wait<1>();  // planes up to xx + 1 (and the weights) have landed
+    __syncthreads();
+
+    float acc[kWM][4][4];
+#pragma unroll
+    for (int mi = 0; mi < kWM; ++mi) {
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
+      }
+    }
+    // acc += the (16 voxels x 16 channels) fragments at `ap` times the
+    // (16 channels x kCB) weights at `bp`
+    auto product = [&](const __nv_bfloat16* ap, const __nv_bfloat16* bp) {
+      unsigned a[kWM][4];
+#pragma unroll
+      for (int mi = 0; mi < kWM; ++mi) ldmatrix_x4(a[mi], ap + a_lane[mi]);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        unsigned bf[4];
+        ldmatrix_x4_trans(bf, bp + b_lane[np]);
+#pragma unroll
+        for (int mi = 0; mi < kWM; ++mi) {
+          mma_bf16(acc[mi][2 * np], a[mi], bf[0], bf[1]);
+          mma_bf16(acc[mi][2 * np + 1], a[mi], bf[2], bf[3]);
+        }
+      }
+    };
+    for (int tap0 = 0; tap0 < 27; tap0 += taps) {
+      if (staged) {
+        __syncthreads();  // the previous stage's weights are no longer read
+        load_weights(tap0, taps);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      for (int tl = 0; tl < taps; ++tl) {
+        const int tap = tap0 + tl;
+        const int dx = tap / 9, dy = (tap / 3) % 3, dz = tap % 3;
+        const __nv_bfloat16* ap = halo +
+                                  ((xx + dx) & (kRing - 1)) * kMHalo * CS +
+                                  (dy * kMHZ + dz) * CS;
+        const __nv_bfloat16* bp = wsm + tl * Cin * kCB;
+#pragma unroll 2
+        for (int c0 = 0; c0 < Cin; c0 += 16) product(ap + c0, bp + c0 * kCB);
+      }
+    }
+
+    // the quad's lanes trade their channel pairs of the warp's four tiles, so
+    // that lane t stores the 8 channels of tile t: 64 contiguous bytes of
+    // voxel g, then of voxel g + 8, a quad
+#pragma unroll
+    for (int mi = 0; mi < kWM; ++mi) {
+      const int gy = y0 + wm * kWM + mi;
+      const bool row_ok = gy < Y;
+      const int64_t voxel = ((k.b * X + xx) * Y + gy) * Z;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gz = z0 + g + 8 * h;
+        unsigned v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          v[j] = pack_bf16(acc[mi][j][2 * h], acc[mi][j][2 * h + 1]);
+        }
+        const uint4 tile = quad_transpose(v, t);
+        const int co = co0 + (wn * 4 + t) * 8;
+        if (row_ok && gz < Z && co < Cout) {
+          *reinterpret_cast<uint4*>(out + (voxel + gz) * Cout + co) = tile;
+        }
+      }
+      if (kStats && row_ok) {
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) {
+          add_stats(s[nj], ss[nj], acc[mi][nj], z0 + g < Z, z0 + g + 8 < Z);
+        }
+      }
+    }
+    __syncthreads();  // plane xx - 1's slot is free for plane xx + 3
+  }
+
+  cp_async_wait<0>();  // the planes fetched past the segment's end
+  if (kStats) {
+    __syncthreads();  // nothing reads or writes the halos any more
+    fold_stats<4>(reinterpret_cast<float*>(smem_raw), s, ss, wm, kWarpsM,
+                  wn * 4, kCB, partial, k, Cout);
+  }
+}
+
+// K8 "mma" at the models' widths: the same march on wgmma. CIN (32 or 64) and
+// NT are known when the kernel is compiled and the weights are resident. A
+// block is two warpgroups; a warpgroup owns four rows of the
+// 8 x 16 voxel tile (64 voxels, 16 a warp) and all kCB output channels, one
+// m64nNk16 product per (tap, 16 input channels):
+//   - A comes from registers: each warp's ldmatrix of its 16 voxels, as in
+//     the mma.sync kernel;
+//   - B is read by the tensor cores straight from shared memory, once per
+//     warpgroup and not once per warp (with mma.sync the eight warps' own
+//     ldmatrix of the same weights are two thirds of the shared-memory
+//     traffic, which bounds that kernel): k-major (k = tap * CIN + ci)
+//     blocks of 64 k under the 128-byte swizzle, on a 1,024-byte boundary,
+//     transposed into shared memory once per block;
+//   - the 27 * CIN / 16 products of a plane unroll into one straight run at
+//     constant offsets; they go to the tensor cores in groups of kGroup, and
+//     while one group runs the fragments of the next load into the other set
+//     of registers.
+// Grid, ring, epilogue and statistics as in the mma.sync kernel.
+template <int NT, bool kStats, int CIN>
+__global__ void __launch_bounds__(kThreads, 1)
+    band_conv_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
+                           const __nv_bfloat16* __restrict__ w,
+                           __nv_bfloat16* __restrict__ out,
+                           float* __restrict__ partial, int B, int X, int Y,
+                           int Z, int Cout, int nyt, int nzt, int segs,
+                           int seg_len) {
+  constexpr int kCB = 8 * NT;          // output channels per block
+  constexpr int CS = CIN + 8;          // voxel stride of a halo
+  constexpr int kPerTap = CIN / 16;    // products per tap
+  constexpr int kSteps = 27 * kPerTap;  // products per plane
+  constexpr int kGroups = (kSteps + kGroup - 1) / kGroup;
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  // [64-k blocks][kCB][64] weights, then the ring of halos
+  __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(smem_wg);
+  __nv_bfloat16* halo = wsm + wgmma_weight_elems(CIN, kCB);
+
+  if (smem_address(smem_wg) % 1024 != 0) __trap();  // the swizzle's boundary
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;  // warp: the tile row it owns
+  const int g = lane / 4, t = lane % 4;
+
+  const MmaBlock k = mma_block(B, X, nyt, nzt, segs, seg_len, kCB);
+  const int y0 = k.y0, z0 = k.z0, co0 = k.co0;
+
+  // the weights turn k-major on their way in: the 8 output channels at
+  // (kk, n0 .. n0 + 7), 16 contiguous bytes of w, go to column kk of rows n0
+  // .. n0 + 7 of the 64-k blocks, the 16-byte piece c of row n at piece
+  // c ^ (n % 8). Neighbouring lanes take neighbouring kk: their stores fall
+  // into different banks.
+  constexpr int kK = 27 * CIN;
+  for (int i = tid; i < kK * NT; i += kThreads) {
+    const int kk = i % kK, n0 = (i / kK) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (co0 + n0 < Cout) {
+      v = *reinterpret_cast<const uint4*>(
+          w + static_cast<int64_t>(kk) * Cout + co0 + n0);
+    }
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + j;
+      wsm[((kk / 64) * kCB + n) * 64 + (((kk % 64) / 8) ^ (n & 7)) * 8 +
+          kk % 8] = e[j];
+    }
+  }
+  for (int p = k.xs - 1; p <= k.xs + 1; ++p) {
+    load_plane(halo, x, k, p, X, Y, Z, CIN, CS);
+    cp_async_commit();
+  }
+
+  // ldmatrix row of this lane in an A fragment: voxel lane % 16 of the warp's
+  // tile row, 8 channels further for the upper lanes
+  const int a_lane = (warp * kMHZ + (lane & 15)) * CS + (lane >> 4) * 8;
+  const uint64_t b_desc = wgmma_desc_k128(wsm);
+
+  float s[NT][2], ss[NT][2];
+#pragma unroll
+  for (int nj = 0; nj < NT; ++nj) {
+    s[nj][0] = s[nj][1] = ss[nj][0] = ss[nj][1] = 0.f;
+  }
+
+  for (int xx = k.xs; xx < k.xe; ++xx) {
+    load_plane(halo, x, k, xx + 2, X, Y, Z, CIN, CS);
+    cp_async_commit();
+    cp_async_wait<1>();  // planes up to xx + 1 (and the weights) have landed
+    fence_async_proxy();  // the tensor cores read what cp.async wrote
+    __syncthreads();
+
+    float acc[4 * NT];
+#pragma unroll
+    for (int i = 0; i < 4 * NT; ++i) acc[i] = 0.f;
+    const __nv_bfloat16* plane[3];
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      plane[dx] = halo + ((xx + dx) & (kRing - 1)) * kMHalo * CS + a_lane;
+    }
+    // group i of the plane's products: its A fragments, then its MMAs
+    auto fetch = [&](unsigned (&ag)[kGroup][4], int i) {
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {
+        const int step = i * kGroup + j;
+        if (step < kSteps) {
+          const int tap = step / kPerTap, kc = step % kPerTap;
+          const int dx = tap / 9, dy = (tap / 3) % 3, dz = tap % 3;
+          ldmatrix_x4(ag[j], plane[dx] + (dy * kMHZ + dz) * CS + kc * 16);
+        }
+      }
+    };
+    auto multiply = [&](unsigned (&ag)[kGroup][4], int i) {
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {
+        const int step = i * kGroup + j;
+        if (step < kSteps) {
+          wgmma_bf16<kCB>(acc, ag[j],
+                          b_desc + (step >> 2) * (kCB * 8) + (step & 3) * 2);
+        }
+      }
+      wgmma_commit();
+    };
+    unsigned a[2][kGroup][4];
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[0][j][e] = a[1][j][e] = 0u;
+    }
+    fetch(a[0], 0);
+#pragma unroll
+    for (int i = 0; i < kGroups; ++i) {
+      multiply(a[i & 1], i);
+      if (i + 1 < kGroups) {
+        wgmma_wait<1>();  // group i - 1 is done with the other registers
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) keep_alive(a[(i + 1) & 1][j]);
+        fetch(a[(i + 1) & 1], i + 1);
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      keep_alive(a[0][j]);
+      keep_alive(a[1][j]);
+    }
+
+    // the quad's lanes trade their channel pairs of four tiles, so that lane
+    // t stores the 8 channels of tile t: 64 contiguous bytes of voxel g, then
+    // of voxel g + 8, a quad
+    const int gy = y0 + warp;
+    const bool row_ok = gy < Y;
+    const int64_t voxel = ((k.b * X + xx) * Y + gy) * Z;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gz = z0 + g + 8 * h;
+#pragma unroll
+      for (int n4 = 0; n4 < NT; n4 += 4) {
+        unsigned v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          v[j] = pack_bf16(acc[4 * (n4 + j) + 2 * h],
+                           acc[4 * (n4 + j) + 2 * h + 1]);
+        }
+        const uint4 tile = quad_transpose(v, t);
+        const int co = co0 + (n4 + t) * 8;
+        if (row_ok && gz < Z && co < Cout) {
+          *reinterpret_cast<uint4*>(out + (voxel + gz) * Cout + co) = tile;
+        }
+      }
+    }
+    if (kStats && row_ok) {
+#pragma unroll
+      for (int nj = 0; nj < NT; ++nj) {
+        add_stats(s[nj], ss[nj], acc + 4 * nj, z0 + g < Z, z0 + g + 8 < Z);
+      }
+    }
+    __syncthreads();  // plane xx - 1's slot is free for plane xx + 3
+  }
+
+  cp_async_wait<0>();  // the planes fetched past the segment's end
+  if (kStats) {
+    __syncthreads();  // nothing reads or writes the halos any more
+    fold_stats<NT>(reinterpret_cast<float*>(halo), s, ss, warp, kMY, 0, kCB,
+                   partial, k, Cout);
+  }
+}
+
 // K9. Grid: G position groups x (cout block, cin block, dx), dx fastest.
 // Block g takes the voxel tiles g, g + G, ... and writes row g of `partial`,
 // (G, 27, Cin, Cout).
@@ -396,12 +917,103 @@ void launch_band_conv(const void* x, const void* w, void* out, void* partial,
   }
 }
 
+// How the "mma" variant cuts a call: output channels per block, x segments
+// (columns of tiles are split along x until the card's 132 SMs have two
+// blocks each, as long as a segment keeps 8 planes), taps of weights staged
+// at a time (the most of 27, 9, 3, 1 that fit beside the ring), and the
+// dynamic shared memory that takes; taps == 0 when nothing fits.
+struct MmaPlan {
+  int cout_block, nyt, nzt, segs, seg_len, taps;
+  size_t smem;
+  int64_t rows;  // spatial blocks: the rows of the statistics partials
+};
+
+MmaPlan mma_plan(int B, int X, int Y, int Z, int Cin, int Cout) {
+  MmaPlan p{};
+  p.cout_block = Cout > 32 ? 64 : 32;
+  p.nyt = static_cast<int>(ceil_div(Y, kMY));
+  p.nzt = static_cast<int>(ceil_div(Z, kMZ));
+  const int64_t columns =
+      static_cast<int64_t>(B) * p.nyt * p.nzt * ceil_div(Cout, p.cout_block);
+  const int64_t want = ceil_div(2 * 132, columns);
+  const int64_t most = ceil_div(X, 8);
+  p.seg_len = static_cast<int>(ceil_div(X, want < most ? want : most));
+  p.segs = static_cast<int>(ceil_div(X, p.seg_len));
+  p.rows = static_cast<int64_t>(B) * p.segs * p.nyt * p.nzt;
+  const size_t ring = sizeof(__nv_bfloat16) * kRing * kMHalo * (Cin + 8);
+  for (int taps : {27, 9, 3, 1}) {
+    const size_t bytes =
+        ring + sizeof(__nv_bfloat16) * taps * Cin * p.cout_block;
+    if (bytes <= static_cast<size_t>(kMaxSmem)) {
+      p.taps = taps;
+      p.smem = bytes;
+      break;
+    }
+  }
+  return p;
+}
+
+bool mma_takes(int Cin, int Cout, int dtype) {
+  return dtype == kBFloat16 && Cin % 16 == 0 && Cin <= 128 && Cout % 8 == 0;
+}
+
+template <int NT>
+int launch_band_conv_mma(const void* x, const void* w, void* out,
+                         void* partial, void* stats, int B, int X, int Y,
+                         int Z, int Cin, int Cout, int with_stats,
+                         const MmaPlan& p, cudaStream_t st) {
+  using T = __nv_bfloat16;
+  const int64_t blocks = p.rows * ceil_div(Cout, p.cout_block);
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = with_stats ? band_conv_mma_kernel<NT, true>
+                           : band_conv_mma_kernel<NT, false>;
+  const cudaError_t status = allow_smem(kernel, p.smem);
+  if (status != cudaSuccess) return static_cast<int>(status);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, p.smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out),
+      static_cast<float*>(partial), B, X, Y, Z, Cin, Cout, p.nyt, p.nzt,
+      p.segs, p.seg_len, p.taps);
+  if (with_stats) {
+    reduce_rows(static_cast<const float*>(partial), static_cast<float*>(stats),
+                p.rows, Cout, 2, st);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NT, int CIN>
+int launch_band_conv_wgmma(const void* x, const void* w, void* out,
+                           void* partial, void* stats, int B, int X, int Y,
+                           int Z, int Cout, int with_stats, const MmaPlan& p,
+                           cudaStream_t st) {
+  using T = __nv_bfloat16;
+  const int64_t blocks = p.rows * ceil_div(Cout, p.cout_block);
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(T) * (wgmma_weight_elems(CIN, 8 * NT) +
+                                   kRing * kMHalo * (CIN + 8));
+  auto kernel = with_stats ? band_conv_wgmma_kernel<NT, true, CIN>
+                           : band_conv_wgmma_kernel<NT, false, CIN>;
+  const cudaError_t status = allow_smem(kernel, smem);
+  if (status != cudaSuccess) return static_cast<int>(status);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<T*>(out), static_cast<float*>(partial), B, X, Y, Z, Cout,
+      p.nyt, p.nzt, p.segs, p.seg_len);
+  if (with_stats) {
+    reduce_rows(static_cast<const float*>(partial), static_cast<float*>(stats),
+                p.rows, Cout, 2, st);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace transmf
 
-// Voxel tiles of K8 for a volume, i.e. the rows of its statistics partials.
-extern "C" int64_t transmf_band_blocks(int B, int X, int Y, int Z) {
+// Spatial blocks of K8 for a call, i.e. the rows of its statistics partials.
+// variant: 0 "direct", 1 "mma".
+extern "C" int64_t transmf_band_blocks(int B, int X, int Y, int Z, int Cin,
+                                       int Cout, int variant) {
   using namespace transmf;
+  if (variant == 1) return mma_plan(B, X, Y, Z, Cin, Cout).rows;
   return static_cast<int64_t>(B) * X * ceil_div(Y, kFY) * ceil_div(Z, kFZ);
 }
 
@@ -409,20 +1021,56 @@ extern "C" int64_t transmf_band_blocks(int B, int X, int Y, int Z) {
 // (B, X, Y, Z, Cout). with_stats: also stats, float32 (2, Cout) [sum, sum of
 // squares] of the float32 accumulators over B, X, Y, Z, through partial, a
 // float32 scratch of 2 * transmf_band_blocks(...) * Cout (both unused
-// otherwise).
+// otherwise). variant 1 ("mma") needs bfloat16, Cin % 16 == 0, Cin <= 128,
+// Cout % 8 == 0 and 16-byte aligned x, w and out; variant 0 ("direct") takes
+// everything.
 extern "C" int transmf_band_conv(const void* x, const void* w, void* out,
                                  void* partial, void* stats, int B, int X,
                                  int Y, int Z, int Cin, int Cout,
-                                 int with_stats, int dtype, void* stream) {
+                                 int with_stats, int dtype, int variant,
+                                 void* stream) {
   using namespace transmf;
-  if (bad_volume(B, X, Y, Z, Cin, Cout)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int J = Cout > 32 ? 2 : 1;
-  if (transmf_band_blocks(B, X, Y, Z) * ceil_div(Cout, 32 * J) > 2147483647LL) {
+  if (bad_volume(B, X, Y, Z, Cin, Cout) || variant < 0 || variant > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto st = static_cast<cudaStream_t>(stream);
+  if (variant == 1) {
+    const auto misaligned = [](const void* p) {
+      return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+    };
+    const MmaPlan p = mma_plan(B, X, Y, Z, Cin, Cout);
+    if (!mma_takes(Cin, Cout, dtype) || p.taps == 0 || misaligned(x) ||
+        misaligned(w) || misaligned(out)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    // the models' widths, whose weights stay resident, take the wgmma kernel
+    // compiled for their Cin
+    const auto wgmma = [&](auto nt, auto cin) {
+      return launch_band_conv_wgmma<decltype(nt)::value, decltype(cin)::value>(
+          x, w, out, partial, stats, B, X, Y, Z, Cout, with_stats, p, st);
+    };
+    constexpr std::integral_constant<int, 4> nt4{};
+    constexpr std::integral_constant<int, 8> nt8{};
+    constexpr std::integral_constant<int, 32> cin32{};
+    constexpr std::integral_constant<int, 64> cin64{};
+    if (p.taps == 27 && Cin == 32) {
+      return p.cout_block == 64 ? wgmma(nt8, cin32) : wgmma(nt4, cin32);
+    }
+    if (p.taps == 27 && Cin == 64 && p.cout_block == 32) {
+      return wgmma(nt4, cin64);
+    }
+    if (p.cout_block == 64) {
+      return launch_band_conv_mma<8>(x, w, out, partial, stats, B, X, Y, Z,
+                                        Cin, Cout, with_stats, p, st);
+    }
+    return launch_band_conv_mma<4>(x, w, out, partial, stats, B, X, Y, Z,
+                                      Cin, Cout, with_stats, p, st);
+  }
+  const int J = Cout > 32 ? 2 : 1;
+  if (transmf_band_blocks(B, X, Y, Z, Cin, Cout, 0) * ceil_div(Cout, 32 * J) >
+      2147483647LL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return dispatch(dtype, [&](auto tag) {
     using T = decltype(tag);
     if (J == 2) {

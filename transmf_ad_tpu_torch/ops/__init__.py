@@ -25,7 +25,7 @@ KERNELS = (TOKEN_POOL, ATTENTION, STEM_CONV, AFFINE_ACT_POOL, STEM_CONV_STATS,
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.reset()
 
 
 def attention_core(q, k, v, scale: float):

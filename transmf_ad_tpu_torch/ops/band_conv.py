@@ -9,6 +9,12 @@ shift).
 - `band_conv3d`: kernel K8 (csrc/band_conv.cu). Backward: the input gradient
   is K8 on the output gradient with the weights reversed in space and Cin and
   Cout swapped; the weight gradient is kernel K9 (`band_dw`).
+- K8 has two variants, and `variant(dtype, cin, cout)` names the one a CUDA
+  launch takes: "mma", an implicit GEMM on the tensor cores, for bfloat16 with
+  Cin % 16 == 0, Cin <= 128 and Cout % 8 == 0 (every body conv of the
+  full-width models); "direct", float32 FMAs on the CUDA cores, for float32
+  and for other channel counts. The choice depends on dtype and shape alone;
+  a launch of either that fails raises. `BAND_CONV.by_variant` counts them.
 - `band_conv3d_stats` (training): K8 with the BatchNorm sums of its float32
   accumulator, float32 (2, Cout) [sum, sum of squares] over B, X, Y, Z, where
   the JAX op returns per-lane (2, Z * Cout) sums that its caller folds at once
@@ -35,9 +41,12 @@ from .._build import INT, PTR, Kernel, check_cuda, library
 
 BAND_CONV = Kernel(
     name="band_conv", entry="transmf_band_conv",
-    argtypes=(PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, INT),
+    argtypes=(PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, INT,
+              INT),
     source="transmf_ad_tpu_torch/csrc/band_conv.cu",
     replaces="transmf_ad_tpu/ops/band_conv.py:227")
+VARIANTS = ("direct", "mma")  # K8's, by their code in the C interface
+MMA_MAX_CIN = 128  # the ring of input halos must fit in shared memory
 
 # also replaces _band_dw_ab_kernel (:369)
 BAND_DW = Kernel(
@@ -102,10 +111,19 @@ def flip_weight(w: torch.Tensor) -> torch.Tensor:
     return w.flip(0, 1, 2).transpose(3, 4).contiguous()
 
 
+def variant(dtype: torch.dtype, cin: int, cout: int) -> str:
+    """The K8 variant a CUDA launch takes: "mma" (tensor cores) or "direct"
+    (CUDA cores), from the dtype and the channel counts alone."""
+    if (dtype == torch.bfloat16 and cin % 16 == 0 and cin <= MMA_MAX_CIN
+            and cout % 8 == 0):
+        return "mma"
+    return "direct"
+
+
 @functools.cache
 def _blocks_fn():
     fn = library().transmf_band_blocks
-    fn.argtypes = [INT, INT, INT, INT]
+    fn.argtypes = [INT] * 7
     fn.restype = ctypes.c_int64
     return fn
 
@@ -130,16 +148,19 @@ def _band_forward(x, w, stats: bool):
     _check(name, x, w)
     b, X, Y, Z, cin = x.shape
     cout = w.shape[4]
+    which = variant(x.dtype, cin, cout)
+    code = VARIANTS.index(which)
     out = torch.empty(b, X, Y, Z, cout, dtype=x.dtype, device=x.device)
     partial = st = None
     if stats:
-        partial = torch.empty(2, _blocks_fn()(b, X, Y, Z), cout,
-                              dtype=torch.float32, device=x.device)
+        partial = torch.empty(2, _blocks_fn()(b, X, Y, Z, cin, cout, code),
+                              cout, dtype=torch.float32, device=x.device)
         st = torch.empty(2, cout, dtype=torch.float32, device=x.device)
     BAND_CONV.launch(x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(),
                      partial.data_ptr() if stats else None,
                      st.data_ptr() if stats else None,
-                     b, X, Y, Z, cin, cout, int(stats), dtype)
+                     b, X, Y, Z, cin, cout, int(stats), dtype, code,
+                     variant=which)
     return (out, st) if stats else out
 
 

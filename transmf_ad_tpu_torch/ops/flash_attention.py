@@ -2,12 +2,17 @@
 
 Port of transmf_ad_tpu/ops/flash_attention.py. `fused_attention`: the forward
 is kernel K2 (csrc/attention.cu); the backward is a plain float32 recompute,
-as the JAX package's is XLA (`_bwd_reference`). `flash_attention`, which
-`attention_core` takes above `FLASH_MIN_KEYS` keys: the forward is K10 and
-saves the float32 logsumexp of every query row; the backward is K11 (dq) and
-K12 (dk, dv), which recompute the probabilities from that logsumexp
-(csrc/flash_attention.cu). The TPU kernels' `block_q`/`block_k` arguments
-tile VMEM and have no counterpart here.
+as the JAX package's is XLA (`_bwd_reference`). K2 has two variants, and
+`attention_variant(dtype, d)` names the one a CUDA launch takes: "mma"
+(FlashAttention-2 tiling on the tensor cores) for bfloat16 with a head dim of
+16, 32, 64 or 128; "rows" (K10's resident-row forward on the CUDA cores,
+without the logsumexp) for float32 and other head dims. The choice depends on
+dtype and head dim alone; `ATTENTION.by_variant` counts the launches of each.
+`flash_attention`, which `attention_core` takes above `FLASH_MIN_KEYS` keys:
+the forward is K10 and saves the float32 logsumexp of every query row; the
+backward is K11 (dq) and K12 (dk, dv), which recompute the probabilities from
+that logsumexp (csrc/flash_attention.cu). The TPU kernels' `block_q`/`block_k`
+arguments tile VMEM and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -20,9 +25,11 @@ FLASH_MIN_KEYS = 2048  # above this `attention_core` takes flash_attention
 
 ATTENTION = Kernel(
     name="attention_fwd", entry="transmf_attention_fwd",
-    argtypes=(PTR, PTR, PTR, PTR, INT, INT, INT, INT, FLOAT, INT),
+    argtypes=(PTR, PTR, PTR, PTR, INT, INT, INT, INT, FLOAT, INT, INT),
     source="transmf_ad_tpu_torch/csrc/attention.cu",
     replaces="transmf_ad_tpu/ops/flash_attention.py:78")
+ATTENTION_VARIANTS = ("rows", "mma")  # K2's, by their code in the C interface
+MMA_HEAD_DIMS = (16, 32, 64, 128)
 
 _FLASH_SOURCE = "transmf_ad_tpu_torch/csrc/flash_attention.cu"
 _FLASH_SIZES = (INT, INT, INT, INT, FLOAT, INT)  # BH, N, M, D, scale, dtype
@@ -64,6 +71,14 @@ def attention_bwd_reference(q, k, v, g, scale: float):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def attention_variant(dtype: torch.dtype, d: int) -> str:
+    """The K2 variant a CUDA launch takes: "mma" (tensor cores) or "rows"
+    (CUDA cores), from the dtype and the head dim alone."""
+    if dtype == torch.bfloat16 and d in MMA_HEAD_DIMS:
+        return "mma"
+    return "rows"
+
+
 def _check_qkv(name: str, q, k, v, *same_as_q):
     """Validate CUDA inputs of an attention kernel; returns (BH, N, M, D)
     and the dtype code."""
@@ -83,9 +98,11 @@ def _attention(q, k, v, scale: float) -> torch.Tensor:
     if q.device.type == "cpu":
         return attention_reference(q, k, v, scale)
     sizes, dtype = _check_qkv("fused_attention", q, k, v)
+    which = attention_variant(q.dtype, q.shape[3])
     out = torch.empty_like(q)
     ATTENTION.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     out.data_ptr(), *sizes, float(scale), dtype)
+                     out.data_ptr(), *sizes, float(scale), dtype,
+                     ATTENTION_VARIANTS.index(which), variant=which)
     return out
 
 
@@ -104,8 +121,8 @@ class _Attention(torch.autograd.Function):
 
 def fused_attention(q, k, v, scale: float) -> torch.Tensor:
     """q: (B, H, N, D), k/v: (B, H, M, D) -> (B, H, N, D). Kernel K2 on CUDA
-    tensors (D <= 128, any M); the plain version on CPU tensors.
-    Differentiable, with a plain backward."""
+    tensors (D <= 128, any M; the variant `attention_variant` names); the
+    plain version on CPU tensors. Differentiable, with a plain backward."""
     return _Attention.apply(q, k, v, scale)
 
 
