@@ -24,13 +24,15 @@ before the final line:
             and its operations over the card's peak for their type; and,
             where one PyTorch call computes the same function, that call's
             time (a yardstick: nothing in the port calls it for that); for
-            K2 and K8 the variant the call took ("mma" on the tensor cores
-            for bfloat16 at the models' widths, "rows" / "direct" on the CUDA
-            cores otherwise), with edge cases of the tensor-core variants
-            (one and two planes, tiles one below, at and one above their
-            size, weights staged by taps, segments along x; one query, one
-            key, partial chunks, every head dim); then K2 and K10 side by
-            side at 1,573 and 3,146 keys
+            K2, K8, K9 and K10 the variant the call took ("mma" on the tensor
+            cores for bfloat16 at the models' widths, "rows" / "direct" on
+            the CUDA cores otherwise) and, in bfloat16 at the main shapes,
+            the CUDA-core variant's time in the same run, with edge cases of
+            the tensor-core variants (one and two planes, tiles one below,
+            at and one above their size, weights staged by taps, segments
+            along x, blocks of channels; one query, one key, partial chunks,
+            every head dim); then K2 and K10 side by side at 1,573 and 3,146
+            keys
 4. serving  full-width ModelAd (dim 128, depth 3, 4 heads x 32, mlp 512) in
             bfloat16, random weights and BN statistics from a seeded
             torch.Generator, answers 6 batch-8 requests of 91x109x91
@@ -55,8 +57,9 @@ before the final line:
             182x218x182 MRI+PET (the last 2 timed): the stem, both stage-2
             convs (K8) and the lane-vector pools run at full resolution, and
             every launch of K8 and K2 is of the "mma" variant (asserted, in
-            phases 9-11 too); then card float32 against the CPU at 35x37x33
-            with every body conv on the band route
+            phases 9-11 too, for K9 and K10 as well); then card float32
+            against the CPU at 35x37x33 with every body conv on the band
+            route
 9. full-resolution train  the train step at batch 6, 182x218x182: 2 warm-up
             and 3 timed steps; losses finite, parameters and running
             statistics move, K5, K6, K8 and K9 launched; peak device memory
@@ -83,7 +86,7 @@ runs together, each counted from zero. Before it a `[time]` line gives the
 seconds each group of phases took. The last line is
 {"ok": true, "device": {...}}.
 
-    python3 chip_smoke.py --only band_conv attention_fwd
+    python3 chip_smoke.py --only band_dw flash_fwd
 
 runs phases 1-3 for the named kernels alone and stops without the result
 lines: a short first run of a new kernel.
@@ -139,8 +142,10 @@ RES_TRAIN_KERNELS = ("affine_act_pool", "stem_conv_stats", "stem_dw",
                      "affine_act_pool_bwd", "band_conv", "band_dw",
                      "flash_fwd", "flash_dq", "flash_dkv")
 ATTENTION_CALLS = 6  # per forward: depth 3, one per modality
-# the variant every launch of K2 and K8 must take on the bfloat16 paths
-MMA = {"attention_fwd": "mma", "band_conv": "mma"}
+# the variant every launch of K2, K8, K9 and K10 must take on the bfloat16
+# paths
+MMA = {"attention_fwd": "mma", "band_conv": "mma", "band_dw": "mma",
+       "flash_fwd": "mma"}
 
 
 def _median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -424,6 +429,34 @@ def _kernel_cases(g):
                             _build.DTYPE_CODES[q.dtype], 0, variant="rows")
         return out
 
+    def flash_rows(q, k, v, scale):
+        """K10's "rows" variant, whatever the dtype"""
+        out = torch.empty_like(q)
+        b, h, n, d = q.shape
+        lse = torch.empty(b, h, n, device="cuda")
+        fa.FLASH_FWD.launch(q.device, q.data_ptr(), k.data_ptr(),
+                            v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                            b * h, n, k.shape[2], d, float(scale),
+                            _build.DTYPE_CODES[q.dtype], 0, variant="rows")
+        return out, lse
+
+    def dw_direct(x, gy, y=None, a=None, b2=None):
+        """K9's "direct" variant on the arguments of `band_dw`, whatever
+        their dtype"""
+        b, X, Y, Z, cin = x.shape
+        cout = gy.shape[-1]
+        rows = band_conv._dw_rows_fn()(b, X, Y, Z, cin, cout, 0)
+        part = torch.empty(rows, 27 * cin * cout, device="cuda")
+        dw = torch.empty(3, 3, 3, cin, cout, device="cuda")
+        ab = a is not None
+        band_conv.BAND_DW.launch(
+            x.device, x.data_ptr(), y.data_ptr() if ab else None,
+            gy.data_ptr(), a.data_ptr() if ab else None,
+            b2.data_ptr() if ab else None, part.data_ptr(), dw.data_ptr(), b,
+            X, Y, Z, cin, cout, int(ab), _build.DTYPE_CODES[x.dtype], 0,
+            variant="direct")
+        return dw
+
     max_ref = functools.partial(pool3d.affine_act_pool_reference, mode="max")
     avg_ref = functools.partial(pool3d.affine_act_pool_reference, mode="avg")
     exact = [_elem(0.0, 0.0)]
@@ -546,7 +579,8 @@ def _kernel_cases(g):
         cases += [
             Case("flash_fwd", shape + " + lse", fa.flash_fwd,
                  fa.flash_fwd_reference, attn(b, h, n, d, m), *flash_fwd_tol,
-                 attn_ops, lib_attn),
+                 attn_ops, lib_attn,
+                 flash_rows if d in fa.MMA_HEAD_DIMS else None),
             Case("flash_dq", shape, fa.flash_dq, fa.flash_dq_reference,
                  attn_bwd(b, h, n, d, m), *flash1, dq_ops, lib_attn_bwd),
             Case("flash_dkv", shape, fa.flash_dkv, fa.flash_dkv_reference,
@@ -554,7 +588,7 @@ def _kernel_cases(g):
     cases += [
         Case("flash_fwd", CROSSOVER["flash_fwd", fn], fa.flash_fwd,
              fa.flash_fwd_reference, attn(2, fh, fn, fd), *flash_fwd_tol,
-             attn_ops, lib_attn),
+             attn_ops, lib_attn, flash_rows),
         Case("attention_fwd", CROSSOVER["attention_fwd", fm],
              fused_attention, attention_reference, attn(fb, fh, fn, fd, fm),
              *sums, attn_ops, lib_attn, attn_rows)]
@@ -614,6 +648,16 @@ def _kernel_cases(g):
                           fused_attention, attention_reference,
                           attn(b, h, n, d, m), *sums, attn_ops, lib_attn,
                           attn_rows if n == fn else None, timed=n == fn))
+    # edge cases of K10 "mma" (float32 takes "rows"): one query, one key, a
+    # partial first chunk, one above a chunk, every head dim
+    for b, h, n, d, m in ((1, 2, 1, 32, 70), (1, 2, 40, 32, 1),
+                          (1, 2, 70, 32, 17), (1, 2, 65, 32, 65),
+                          (2, 2, 100, 16, 100), (2, 2, 100, 64, 130),
+                          (1, 2, 100, 128, 130)):
+        cases.append(Case("flash_fwd", f"({b * h},{n},{m},{d}) + lse",
+                          fa.flash_fwd, fa.flash_fwd_reference,
+                          attn(b, h, n, d, m), *flash_fwd_tol, attn_ops,
+                          timed=False))
     for cin, cout in ((32, 32), (32, 64)):
         for with_ab in (True, False):
             cases.append(Case(
@@ -621,7 +665,36 @@ def _kernel_cases(g):
                 f"{cout})" + (" with a, b2" if with_ab else ""),
                 band_conv.band_dw, band_conv.band_dw_reference,
                 band_dw_in(cin, cout, with_ab), *dw_tol, band_dw_ops,
-                lib_band_dw))
+                lib_band_dw, dw_direct))
+    # edge cases of K9 "mma" (float32 takes "direct"), each with and without
+    # a, b2: one plane and two, Y and Z one below, at and one above its
+    # 16 x 16 voxel tile, batch 2, 16 -> 8 (one partly empty group of output
+    # channels), 64 x 64 and 128 x 128 (blocks of input and output
+    # channels), several tiles along y and z, segments along x
+    def dw_small(b, volume, cin, cout, with_ab):
+        def make(dt):
+            x = _randn(g, b, *volume, cin).to(dt)
+            gy = _randn(g, b, *volume, cout).to(dt)
+            if not with_ab:
+                return x, gy
+            return (x, gy, _randn(g, b, *volume, cout).to(dt),
+                    _randn(g, cout), _randn(g, cout, scale=0.1))
+        return make
+
+    for b, volume, cin, cout in ((1, (1, 15, 15), 32, 32),
+                                 (1, (2, 16, 16), 32, 64),
+                                 (2, (3, 17, 17), 32, 64),
+                                 (1, (3, 9, 17), 16, 8),
+                                 (1, (4, 10, 20), 64, 64),
+                                 (1, (3, 9, 18), 128, 128),
+                                 (1, (20, 33, 35), 64, 32)):
+        for with_ab in (True, False):
+            cases.append(Case(
+                "band_dw", f"({b},{','.join(map(str, volume))}) {cin}x{cout}"
+                + (" with a, b2" if with_ab else ""), band_conv.band_dw,
+                band_conv.band_dw_reference,
+                dw_small(b, volume, cin, cout, with_ab), *dw_tol,
+                band_dw_ops, timed=False))
     return cases
 
 

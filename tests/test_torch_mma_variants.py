@@ -1,8 +1,9 @@
-"""The tensor-core variants of K2 (attention forward) and K8 (band conv) of
-the PyTorch/CUDA port, as far as a CPU can hold them: which variant a CUDA
-launch takes for which dtype and shape, and the arithmetic of K2 "mma",
-emulated in plain PyTorch, against the float32 plain version at the
-tolerance the card's check uses. The kernels themselves run only on a GPU
+"""The tensor-core variants of K2 (attention forward), K8 (band conv), K9
+(its weight gradient) and K10 (flash forward) of the PyTorch/CUDA port, as
+far as a CPU can hold them: which variant a CUDA launch takes for which
+dtype and shape, and the arithmetic of K2 "mma", K10 "mma" and K9 "mma",
+emulated in plain PyTorch, against the float32 plain versions at the
+tolerances the card's check uses. The kernels themselves run only on a GPU
 (`chip_smoke.py` phase 3, `tests/test_torch_package.py -m cuda`).
 """
 
@@ -75,11 +76,13 @@ def test_attention_variant_full_width_bf16_is_mma():
 
 
 @pytest.mark.parametrize("dtype,d,want", [
-    (BF16, 16, "mma"), (BF16, 64, "mma"), (BF16, 128, "mma"),
-    (BF16, 48, "rows"), (BF16, 24, "rows"), (BF16, 8, "rows"),
-    (F32, 16, "rows"), (F32, 128, "rows"),
+    (BF16, 16, "mma"), (BF16, 32, "mma"), (BF16, 64, "mma"),
+    (BF16, 128, "mma"), (BF16, 48, "rows"), (BF16, 24, "rows"),
+    (BF16, 8, "rows"), (F32, 16, "rows"), (F32, 32, "rows"),
+    (F32, 128, "rows"),
 ])
 def test_attention_variant_by_dtype_and_head_dim(dtype, d, want):
+    """The rule of K2 and of K10, which takes K2's variants."""
     assert fa.attention_variant(dtype, d) == want
     assert want in fa.ATTENTION_VARIANTS
 
@@ -157,3 +160,141 @@ def test_k2_single_bf16_p_misses_the_tolerance(bh, n, m, d):
                             ref)
     assert missed > 0.005 * ref.numel(), (missed, worst)
     assert worst > 2.0
+
+
+@pytest.mark.parametrize("cin,cout", _band_channels())
+def test_dw_variant_full_width_bf16_is_mma(cin, cout):
+    assert band_conv.dw_variant(BF16, cin, cout) == "mma"
+    assert band_conv.dw_variant(F32, cin, cout) == "direct"
+
+
+@pytest.mark.parametrize("dtype,cin,cout,want", [
+    (BF16, 3, 5, "direct"),      # odd channel counts
+    (BF16, 40, 64, "direct"),    # Cin off the MMA's m16
+    (BF16, 32, 12, "direct"),    # Cout off the n8
+    (BF16, 16, 8, "mma"),
+    (BF16, 64, 64, "mma"),
+    (BF16, 128, 128, "mma"),
+    (BF16, 256, 64, "mma"),      # input channels split over blocks
+    (F32, 64, 64, "direct"),
+])
+def test_dw_variant_by_dtype_and_channels(dtype, cin, cout, want):
+    assert band_conv.dw_variant(dtype, cin, cout) == want
+    assert want in band_conv.DW_VARIANTS
+
+
+def emulate_k10_mma(q, k, v, scale):
+    """K10 "mma" in plain PyTorch: K2 "mma"'s arithmetic (scores in the
+    log2 domain, chunks of 64 keys, P as hi + lo bfloat16), and the
+    logsumexp of each row taken from the log2-domain maximum m and sum l
+    as (m + log2(l)) * ln(2), all in float32."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    c = torch.tensor(scale * math.log2(math.e), dtype=F32)
+    m_run = torch.full(q.shape[:-1], -math.inf)
+    l_run = torch.zeros(q.shape[:-1])
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, k.shape[-2], CHUNK):
+        s = torch.matmul(qf, kf[..., k0:k0 + CHUNK, :].transpose(-1, -2)) * c
+        m_new = torch.maximum(m_run, s.amax(-1))
+        alpha = torch.exp2(m_run - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l_run = l_run * alpha + p.sum(-1)
+        hi = _bf16(p)
+        pv = (torch.matmul(hi, vf[..., k0:k0 + CHUNK, :])
+              + torch.matmul(_bf16(p - hi), vf[..., k0:k0 + CHUNK, :]))
+        acc = acc * alpha[..., None] + pv
+        m_run = m_new
+    lse = (m_run + torch.log2(l_run)) * torch.tensor(math.log(2.0), dtype=F32)
+    return (acc / l_run[..., None]).to(q.dtype), lse
+
+
+@pytest.mark.parametrize("m", [150, 1573, 3146])
+def test_k10_mma_arithmetic_meets_the_tolerance(m):
+    """The kernel's arithmetic against `flash_fwd_reference` at chip_smoke's
+    bfloat16 tolerances for K10: the output within 1e-4 of its scale plus
+    one ulp, the float32 logsumexp (values near 5-9) within 1e-5 absolute,
+    which the conversion from the log2 domain has to keep to a few ulps."""
+    q, k, v = _qkv(13, 2, 300, m, 32)
+    ref, ref_lse = fa.flash_fwd_reference(q, k, v, 32 ** -0.5)
+    out, lse = emulate_k10_mma(q, k, v, 32 ** -0.5)
+    err = (out.float() - ref.float()).abs()
+    tol = 1e-4 * float(ref.float().abs().max()) + RTOL * ref.float().abs()
+    assert bool((err <= tol).all()), float((err / tol).max())
+    assert float((lse - ref_lse).abs().max()) <= 1e-5
+    assert float(ref_lse.min()) > 4.0
+
+
+K9_TILE = (16, 16)  # (Y, Z) voxels of a K9 "mma" tile
+
+
+def _reduce_rows(part):
+    """reduce_rows' order: 32 thread rows each add the rows r, r + 32, ...
+    in turn, then the 32 row sums are added in turn; float32."""
+    sums = []
+    for r0 in range(32):
+        s = torch.zeros(part.shape[1:])
+        for r in range(r0, part.shape[0], 32):
+            s = s + part[r]
+        sums.append(s)
+    out = torch.zeros(part.shape[1:])
+    for s in sums:
+        out = out + s
+    return out
+
+
+def emulate_k9_mma(x, gy, y, a, b2, segs):
+    """K9 "mma"'s split of the contraction: columns of 16 x 16 voxel tiles,
+    each cut into `segs` segments along x, one row of float32 partials a
+    column segment; per output plane of the segment and per tap the
+    (Cin, 16 voxels) x (16 voxels, Cout) products of bfloat16 values (exact
+    in float32) added to the row in float32; then the rows added in
+    reduce_rows' fixed order. yhat is assembled with the kernel's rounding
+    and is zero outside the volume."""
+    B, X, Y, Z, cin = x.shape
+    cout = gy.shape[-1]
+    ty, tz = K9_TILE
+    nyt, nzt = -(-Y // ty), -(-Z // tz)
+    seg_len = -(-X // segs)
+    yh = band_conv._yhat(y, gy, a, b2).float()
+    yh = torch.nn.functional.pad(yh, (0, 0, 0, nzt * tz - Z, 0, nyt * ty - Y))
+    xp = torch.nn.functional.pad(x.float(), (0, 0, 1, nzt * tz - Z + 1,
+                                             1, nyt * ty - Y + 1, 1, 1))
+    part = torch.zeros(B * segs * nyt * nzt, 27, cin, cout)
+    for row in range(part.shape[0]):
+        zt, yt = row % nzt, (row // nzt) % nyt
+        seg, b = (row // (nzt * nyt)) % segs, row // (nzt * nyt * segs)
+        y0, z0 = yt * ty, zt * tz
+        for xx in range(seg * seg_len, min(X, (seg + 1) * seg_len)):
+            tile = yh[b, xx, y0:y0 + ty, z0:z0 + tz].reshape(-1, cout)
+            for tap in range(27):
+                dx, dy, dz = tap // 9, (tap // 3) % 3, tap % 3
+                xs = xp[b, xx + dx, y0 + dy:y0 + dy + ty,
+                        z0 + dz:z0 + dz + tz]
+                part[row, tap] += xs.reshape(-1, cin).T @ tile
+    return _reduce_rows(part.reshape(part.shape[0], -1)).reshape(
+        3, 3, 3, cin, cout)
+
+
+@pytest.mark.parametrize("with_ab", [True, False])
+def test_k9_mma_split_order_meets_the_tolerance(with_ab):
+    """The kernel's order of sums against `band_dw_reference`: within
+    chip_smoke's bfloat16 tolerance for dw (1e-2 of the largest magnitude)
+    and in fact within 1e-5 of it, since bfloat16 products are exact in
+    float32 and only the order of the float32 sums differs."""
+    rng = np.random.default_rng(17)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+
+    x, gy, y = (draw(2, 3, 17, 18, 16).to(BF16),
+                draw(2, 3, 17, 18, 8).to(BF16), draw(2, 3, 17, 18, 8).to(BF16))
+    a, b2 = draw(8), 0.1 * draw(8)
+    if not with_ab:
+        a, b2, y = torch.zeros(8), torch.zeros(8), torch.zeros_like(y)
+    ref = (band_conv.band_dw_reference(x, gy, y, a, b2) if with_ab
+           else band_conv.band_dw_reference(x, gy))
+    out = emulate_k9_mma(x, gy, y, a, b2, segs=2)
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    assert err <= 1e-2 * scale
+    assert err <= 1e-5 * scale, err / scale

@@ -477,3 +477,89 @@ def test_backward_launches_kernels_on_cuda(cuda):
         pool3d.max_pool3d_2x2(x.half())
     with pytest.raises(ValueError, match="contiguous"):
         pool3d.max_pool3d_2x2(x.transpose(1, 2))
+
+
+@pytest.mark.cuda
+def test_k9_k10_tensor_core_variants_on_cuda(cuda):
+    """K9 "mma" (with and without a, b2) and K10 "mma" at small odd shapes
+    against their plain versions: one and two planes, Y and Z around the
+    16 x 16 voxel tile, 16 -> 8, 64 x 64 and 128 x 128 (blocks of channels),
+    segments along x;
+    one query, one key, partial chunks, every head dim, the logsumexp to
+    1e-5. bfloat16 takes the tensor-core variant, float32 the CUDA-core
+    one, and the count per variant says so."""
+    def r(*s):
+        return torch.randn(*s, generator=cuda, device="cuda")
+
+    for b, vol, cin, cout in ((1, (1, 15, 15), 32, 32),
+                              (1, (2, 16, 16), 32, 64),
+                              (2, (3, 17, 17), 16, 8), (1, (4, 10, 20), 64, 64),
+                              (1, (3, 9, 18), 128, 128),
+                              (1, (20, 33, 35), 64, 32)):
+        x, gy, y = r(b, *vol, cin), r(b, *vol, cout), r(b, *vol, cout)
+        a, b2 = r(cout), 0.1 * r(cout)
+        for dtype, want in ((torch.bfloat16, "mma"),
+                            (torch.float32, "direct")):
+            assert band_conv.dw_variant(dtype, cin, cout) == want
+            xd, gd, yd = x.to(dtype), gy.to(dtype), y.to(dtype)
+            band_conv.BAND_DW.reset()
+            dw = band_conv.band_dw(xd, gd)
+            dw_ab = band_conv.band_dw(xd, gd, yd, a, b2)
+            torch.cuda.synchronize()
+            assert band_conv.BAND_DW.by_variant == {want: 2}
+            what = f"band_dw {want} {b} {vol} {cin}x{cout}"
+            _match(dw, band_conv.band_dw_reference(xd, gd), "s", dtype, what)
+            _match(dw_ab, band_conv.band_dw_reference(xd, gd, yd, a, b2), "s",
+                   dtype, what + " with a, b2")
+    for bh, n, m, d in ((2, 1, 70, 32), (2, 40, 1, 32), (2, 70, 17, 32),
+                        (2, 65, 65, 32), (3, 100, 100, 16), (3, 100, 130, 64),
+                        (2, 100, 130, 128)):
+        q, k, v = r(1, bh, n, d), r(1, bh, m, d), r(1, bh, m, d)
+        for dtype, want in ((torch.bfloat16, "mma"), (torch.float32, "rows")):
+            args = (q.to(dtype), k.to(dtype), v.to(dtype), d ** -0.5)
+            flash.FLASH_FWD.reset()
+            out, lse = flash.flash_fwd(*args)
+            torch.cuda.synchronize()
+            assert flash.FLASH_FWD.by_variant == {want: 1}
+            ref, ref_lse = flash.flash_fwd_reference(*args)
+            what = f"flash_fwd {want} {(bh, n, m, d)}"
+            _match(out, ref, "v", dtype, what)
+            torch.testing.assert_close(lse, ref_lse, rtol=0.0, atol=1e-5,
+                                       msg=lambda m_: f"{what} lse: {m_}")
+
+
+@pytest.mark.cuda
+def test_k9_k10_mma_autograd_on_cuda(cuda):
+    """The tensor-core variants inside their autograd functions, bfloat16:
+    flash_attention's backward (K11, K12) fed the output and logsumexp of
+    K10 "mma" against `flash_bwd_reference` (1e-4 of each gradient's scale
+    plus one ulp), and band_conv3d_stats's weight gradient through K9 "mma"
+    against the plain dw from the same y, a and b2."""
+    q, k, v, g = (torch.randn(1, 2, n, 32, generator=cuda, device="cuda")
+                  .bfloat16() for n in (45, 70, 70, 45))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash.FLASH_FWD.reset()
+    out = flash.flash_attention(*leaves, 0.2)
+    out.backward(g)
+    assert flash.FLASH_FWD.by_variant == {"mma": 1}
+    ref_out, ref_lse = flash.flash_fwd_reference(q, k, v, 0.2)
+    refs = flash.flash_bwd_reference(q, k, v, ref_out, ref_lse, g, 0.2)
+    for name, leaf, ref in zip("qkv", leaves, refs):
+        tol = 1e-4 * float(ref.float().abs().max())
+        torch.testing.assert_close(leaf.grad.float(), ref.float(),
+                                   rtol=2 ** -7, atol=tol,
+                                   msg=lambda m_, n_=name: f"d{n_}: {m_}")
+    x = torch.randn(1, 3, 9, 17, 32, generator=cuda, device="cuda").bfloat16()
+    w = (0.05 * torch.randn(3, 3, 3, 32, 64, generator=cuda, device="cuda")
+         ).bfloat16().requires_grad_()
+    band_conv.BAND_DW.reset()
+    y, st = band_conv.band_conv3d_stats(x, w)
+    gy = torch.randn(y.shape, generator=cuda, device="cuda").bfloat16()
+    gst = torch.randn(st.shape, generator=cuda, device="cuda") * 1e-3
+    (dw,) = torch.autograd.grad((y, st), (w,), (gy, gst))
+    assert band_conv.BAND_DW.by_variant == {"mma": 1}
+    ref = band_conv.band_dw_reference(x, gy, y.detach(), gst[0].contiguous(),
+                                      (2.0 * gst[1]).contiguous())
+    # dw is rounded once to w's bfloat16: one ulp beside the sums' order
+    torch.testing.assert_close(dw.float(), ref, rtol=2 ** -7,
+                               atol=1e-5 * float(ref.abs().max()))

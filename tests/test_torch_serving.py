@@ -69,3 +69,20 @@ def test_make_inference_fn_adversarial_flag():
     # read as a triple, the (2, 2) logits would lose their batch axis
     assert make_inference_fn(port, "cpu", adversarial=True)(
         mri, pet).shape == (2,)
+
+
+@pytest.mark.parametrize("count", [1, 3])
+def test_make_inference_fn_wrong_volume_count(count):
+    """The closure takes *vols, as the JAX package's does: a wrong number
+    of volumes reaches the model's forward and raises a TypeError there,
+    in both packages."""
+    jmodel, v, port = model("transformer_res")
+    state = types.SimpleNamespace(params=v["params"],
+                                  batch_stats=v["batch_stats"],
+                                  apply_fn=jmodel.apply)
+    vols = [*volumes(6), volumes(7)[0]][:count]
+    with pytest.raises(TypeError):
+        j_serving.make_inference_fn(state, ("MRI", "PET"), False)(
+            *[jnp.asarray(x) for x in vols])
+    with pytest.raises(TypeError, match="pet" if count == 1 else "train"):
+        make_inference_fn(port, "cpu")(*vols)

@@ -87,17 +87,62 @@
 //       xpad[b, x+dx, y+dy, z+dz, ci] * yhat[b, x, y, z, co],
 //   yhat = gy + round(a[co] + y * b2[co])   (or gy alone)
 // with float32 sums. The TPU kernel accumulates T += lhs^T @ yhat per z-chunk
-// and reads the taps off the band's diagonals. Here the (27, Cin, Cout) table
-// is 110 to 221 KB at the model's widths, too much for one block, so the grid
-// splits it by dx, by 32 input channels and by 32 output channels; a block of
-// 256 threads then holds a (9, 32, 32) slice in registers, 36 sums a thread
-// (one ci, nine (dy, dz) taps, four co). Such a block strides over voxel tiles
-// of kWY x kWZ: it stages the input halo of plane x + dx - 1 and the tile's
-// yhat (assembled with the TPU kernel's rounding) in shared memory, and every
-// thread sweeps the tile's voxels along z with a 3 x 3 sliding window of its
-// input channel, 36 FMAs for four shared-memory loads. A block writes its
-// slice once, as row g of the partials, and reduce_rows adds the G rows in a
-// fixed order. Bound: operations, as K8.
+// and reads the taps off the band's diagonals. Here the contraction runs over
+// the voxels (K = B X Y Z, 5.4 million at full resolution) and is split over
+// blocks: each block sums its share of the voxel tiles into a slice of one
+// row of float32 partials, and reduce_rows adds the rows in a fixed order
+// (no float atomics: the result repeats bit for bit). The (27, Cin, Cout)
+// table is 110 to 221 KB of float32 at the model's widths, more than a
+// block's registers, so the grid splits it by blocks of channels (and, in
+// the direct kernel, by dx).
+// Bound: operations (0.6 TFLOP at 32 -> 64), as K8.
+//
+// Two variants, chosen by the caller from the dtype and the channel counts
+// alone (ops/band_conv.py::dw_variant) and refused here when they do not fit:
+//
+// K9 "mma" (bfloat16, Cin % 16 == 0, Cout % 8 == 0): an implicit GEMM on
+// mma.sync.m16n8k16, M = taps x Cin, N = Cout, K = voxels. The orientation:
+// both operands are voxel-major (channels-last), so one ldmatrix.trans per
+// operand turns 16 voxels of 8-channel rows into an A fragment (16 input
+// channels x 16 voxels) or a pair of B fragments (16 voxels x 16 output
+// channels); M = taps x Cin keeps Cin % 16 and Cout % 8 the only conditions
+// (the m16 and n8 of the product) and lets all 27 taps share one yhat
+// fragment. K8's march, with the roles of weights and output swapped: a
+// block owns a column of 16 x 16 voxel tiles of one sample (a segment of x),
+// 32 input channels (16 where Cin is an odd multiple of 16) and 32 output
+// channels, in two groups of 9 warps of 16 channels each (one group where
+// Cout <= 16); warp (dx, dz) of a group owns the three taps (dx, 0..2, dz)
+// of its slice, 48 float32 sums a thread at most. Per plane:
+//   - a ring of four input halos, (kDY + 2) x (kDZ + 2) voxels of the
+//     block's input channels: planes x - 1, x, x + 1 feed the products of
+//     output plane x while plane x + 2 and the gy (and y) tile of plane
+//     x + 1 arrive by cp.async (16 bytes a thread, zeros outside the volume
+//     and past Cout), so every input is read once per column (1.27x with
+//     the halo) and gy, y once;
+//   - with a, b2 the block assembles yhat in place with the direct kernel's
+//     rounding (__fmul_rn / __fadd_rn, round to bfloat16, add, round), zero
+//     outside the volume, where round(a) is not;
+//   - a warp walks the 18 rows of its plane's halo: per 16 input channels
+//     one A fragment of row r (16 voxels from column dz: a tap is a view of
+//     the halo, no im2col) serves its three taps, with the B fragments of
+//     yhat rows r, r - 1 and r - 2, which stay in registers as a window.
+//     Voxel strides of Cin + 8 and Cout + 8 elements (odd multiples of 16
+//     bytes) keep the eight rows of every ldmatrix on distinct banks.
+// bfloat16 products are exact in float32, so only the order of the float32
+// sums differs from the direct kernel. A block writes its slice of row
+// `column` of the partials once, at the end of its march. What bounds it
+// (latency: no part removed alone takes more than a quarter of its time) is
+// in PERF.md, from ablate_band_conv.py.
+//
+// K9 "direct" (float32, and bfloat16 with other channel counts): the grid
+// splits the table by dx, by 32 input channels and by 32 output channels; a
+// block of 256 threads holds a (9, 32, 32) slice in registers, 36 sums a
+// thread (one ci, nine (dy, dz) taps, four co). Such a block strides over
+// voxel tiles of kWY x kWZ: it stages the input halo of plane x + dx - 1 and
+// the tile's yhat (assembled with the TPU kernel's rounding) in shared memory
+// as float32, and every thread sweeps the tile's voxels along z with a 3 x 3
+// sliding window of its input channel, 36 FMAs for four shared-memory loads.
+// A block writes its slice once, as row g of the partials.
 #include <initializer_list>
 #include <type_traits>
 
@@ -138,6 +183,14 @@ constexpr int kWY = 8;
 constexpr int kWZ = 16;
 constexpr int kWC = 32;  // channels per block, input and output side
 constexpr int kWHZ = kWZ + 2;
+
+// K9 "mma" tiling: a tile of kDY rows of kDZ voxels (one MMA's depth each)
+constexpr int kDY = 16;
+constexpr int kDZ = 16;
+constexpr int kDHZ = kDZ + 2;
+constexpr int kDHalo = (kDY + 2) * kDHZ;  // voxels of a tile's input halo
+constexpr int kDTaps = 9;  // warps per group of output channels: (dx, dz)
+constexpr int kDwBlocks = 6 * 132;  // K9 "direct" blocks in all
 
 template <typename T>
 __device__ __forceinline__ void store4(T* p, float a, float b, float c, float d);
@@ -891,6 +944,223 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// K9 "mma". MT: 16-channel tiles of input channels per block (16 MT of
+// them), NB: 16-channel pairs of output tiles per warp, WN: groups of 9
+// warps along the output channels (16 NB WN output channels a block, past
+// Cout zero); 24 MT NB float32 sums a thread. Grid: (cin block, cout block)
+// slices x columns (b, x segment, y tile, z tile), z tile fastest. A block
+// marches along x through its segment; per output plane xx warp (dx, dz) of
+// each group adds the products of its three taps (dx, 0..2, dz) and writes
+// them at the end into the block's slice of row `column` of `partial`,
+// (columns, 27, Cin, Cout).
+template <int MT, int NB, int WN>
+__global__ void __launch_bounds__(kDTaps * 32 * WN, 1)
+    band_dw_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                       const __nv_bfloat16* __restrict__ y,
+                       const __nv_bfloat16* __restrict__ gy,
+                       const float* __restrict__ a,
+                       const float* __restrict__ b2,
+                       float* __restrict__ partial, int B, int X, int Y, int Z,
+                       int Cin, int Cout, int nyt, int nzt, int segs,
+                       int seg_len, int nco, int with_ab) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kThreads = kDTaps * 32 * WN;
+  constexpr int kCI = 16 * MT, kCO = 16 * NB * WN;
+  constexpr int CS = kCI + 8;  // voxel stride of a halo: odd x 16 bytes
+  constexpr int YS = kCO + 8;  // voxel stride of a yhat tile: the same
+  constexpr int kHaloElems = kDHalo * CS;
+  constexpr int kTileVox = kDY * kDZ;
+  constexpr int kTileElems = kTileVox * YS;
+  constexpr int kXP = kCI / 8, kYP = kCO / 8;  // 16-byte pieces per voxel
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [kRing][kDHalo][CS]
+  bf16* yh = ring + kRing * kHaloElems;  // [2][kTileVox][YS], yhat
+  bf16* ys = yh + 2 * kTileElems;        // [2][kTileVox][YS], y
+  __shared__ float a_s[kCO], b_s[kCO];
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int64_t columns = static_cast<int64_t>(B) * segs * nyt * nzt;
+  const int64_t column = blockIdx.x % columns;
+  const int slice = static_cast<int>(blockIdx.x / columns);
+  const int co0 = (slice % nco) * kCO, ci0 = (slice / nco) * kCI;
+  const int z0 = static_cast<int>(column % nzt) * kDZ;
+  const int y0 = static_cast<int>((column / nzt) % nyt) * kDY;
+  const int64_t sb = column / (static_cast<int64_t>(nzt) * nyt);
+  const int xs = static_cast<int>(sb % segs) * seg_len;
+  const int xe = min(X, xs + seg_len);
+  const int64_t b = sb / segs;
+  // the warp's taps (dx, 0..2, dz) and its first output channel in the block
+  const int dx = (warp % kDTaps) / 3, dz = warp % 3;
+  const int cw = (warp / kDTaps) * 16 * NB;
+
+  if (with_ab) {
+    for (int i = tid; i < kCO; i += kThreads) {
+      const bool real = co0 + i < Cout;
+      a_s[i] = real ? a[co0 + i] : 0.f;
+      b_s[i] = real ? b2[co0 + i] : 0.f;
+    }
+  }
+
+  // the zero-padded halo of input plane p (-1 .. X), the block's input
+  // channels, to ring slot (p + 1) % kRing by cp.async
+  auto fetch_plane = [&](int p) {
+    bf16* slot = ring + ((p + 1) & (kRing - 1)) * kHaloElems;
+    const bool plane = p >= 0 && p < X;
+    for (int i = tid; i < kDHalo * kXP; i += kThreads) {
+      const int vox = i / kXP, c = i % kXP;
+      const int py = y0 + vox / kDHZ - 1, pz = z0 + vox % kDHZ - 1;
+      const bool real = plane && py >= 0 && py < Y && pz >= 0 && pz < Z;
+      const bf16* src =
+          real ? x + (((b * X + p) * Y + py) * Z + pz) * Cin + ci0 + c * 8 : x;
+      cp_async16(slot + vox * CS + c * 8, src, real);
+    }
+  };
+  // the gy (and y) tile of output plane p, the block's output channels, to
+  // buffer buf; zeros outside the volume and past Cout
+  auto fetch_tile = [&](int p, int buf) {
+    bf16* hy = yh + buf * kTileElems;
+    bf16* hr = ys + buf * kTileElems;
+    for (int i = tid; i < kTileVox * kYP; i += kThreads) {
+      const int vox = i / kYP, c = i % kYP;
+      const int py = y0 + vox / kDZ, pz = z0 + vox % kDZ, co = co0 + c * 8;
+      const bool real = py < Y && pz < Z && co < Cout;
+      const int64_t off =
+          real ? (((b * X + p) * Y + py) * Z + pz) * Cout + co : 0;
+      cp_async16(hy + vox * YS + c * 8, gy + off, real);
+      if (with_ab) cp_async16(hr + vox * YS + c * 8, y + off, real);
+    }
+  };
+  // yhat = gy + round(a + y * b2), rounded in bfloat16 as on the TPU, in
+  // place of gy; zero outside the volume, where round(a) is not
+  auto assemble = [&](int buf) {
+    bf16* hy = yh + buf * kTileElems;
+    const bf16* hr = ys + buf * kTileElems;
+    for (int i = tid; i < kTileVox * kYP; i += kThreads) {
+      const int vox = i / kYP, c = i % kYP;
+      const bool real =
+          y0 + vox / kDZ < Y && z0 + vox % kDZ < Z && co0 + c * 8 < Cout;
+      uint4* dst = reinterpret_cast<uint4*>(hy + vox * YS + c * 8);
+      uint4 gv = *dst;
+      const uint4 rv = *reinterpret_cast<const uint4*>(hr + vox * YS + c * 8);
+      bf16* ge = reinterpret_cast<bf16*>(&gv);
+      const bf16* re = reinterpret_cast<const bf16*>(&rv);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float stat = __bfloat162float(__float2bfloat16_rn(__fadd_rn(
+            a_s[c * 8 + j],
+            __fmul_rn(__bfloat162float(re[j]), b_s[c * 8 + j]))));
+        ge[j] = __float2bfloat16_rn(__bfloat162float(ge[j]) + stat);
+      }
+      *dst = real ? gv : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+
+  float acc[3][MT][2 * NB][4];  // [dy]
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+      for (int nj = 0; nj < 2 * NB; ++nj) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[dy][mi][nj][e] = 0.f;
+      }
+    }
+  }
+  // ldmatrix.trans rows of this lane: an A fragment (16 input channels x 16
+  // voxels) from a halo row, at voxel column dz + a_k and 8 channels further
+  // for lanes 8-15 and 24-31; a pair of B fragments (16 voxels x 16 output
+  // channels) from a yhat row, voxel b_k and 8 channels further for the
+  // upper lanes
+  const int a_k = (lane & 7) + (lane >> 4) * 8;
+  const int a_lane = (dz + a_k) * CS + ((lane >> 3) & 1) * 8;
+  const int b_k = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int b_lane = b_k * YS + cw + (lane >> 4) * 8;
+
+  for (int p = xs - 1; p <= xs + 1; ++p) fetch_plane(p);
+  fetch_tile(xs, 0);
+  cp_async_commit();
+  for (int xx = xs; xx < xe; ++xx) {
+    const int buf = (xx - xs) & 1;
+    if (xx + 1 < xe) {  // the next plane's halo and tile
+      fetch_plane(xx + 2);
+      fetch_tile(xx + 1, buf ^ 1);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // planes up to xx + 1 and tile xx have landed
+    __syncthreads();
+    if (with_ab) {
+      assemble(buf);
+      __syncthreads();
+    }
+    // halo row r of input plane xx + dx - 1 meets yhat row r - dy for each
+    // dy: one A fragment serves three taps, and the B fragments of the last
+    // three yhat rows stay in registers (bw[j]: row r - j)
+    const bf16* ha = ring + ((xx + dx) & (kRing - 1)) * kHaloElems + a_lane;
+    const bf16* hb = yh + buf * kTileElems + b_lane;
+    unsigned bw[3][NB][4];
+#pragma unroll
+    for (int r = 0; r < kDY + 2; ++r) {
+#pragma unroll
+      for (int j = 2; j > 0; --j) {
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) bw[j][nb][e] = bw[j - 1][nb][e];
+        }
+      }
+      if (r < kDY) {
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+          ldmatrix_x4_trans(bw[0][nb], hb + r * kDZ * YS + nb * 16);
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        unsigned af[4];
+        ldmatrix_x4_trans(af, ha + r * kDHZ * CS + mi * 16);
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          if (r - dy >= 0 && r - dy < kDY) {
+#pragma unroll
+            for (int nb = 0; nb < NB; ++nb) {
+              mma_bf16(acc[dy][mi][2 * nb], af, bw[dy][nb][0], bw[dy][nb][1]);
+              mma_bf16(acc[dy][mi][2 * nb + 1], af, bw[dy][nb][2],
+                       bw[dy][nb][3]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // plane xx - 1's slot and tile xx's buffer are free
+  }
+  cp_async_wait<0>();
+
+  // C fragment: input channels g and g + 8 of an m-tile, output channels
+  // 2t and 2t + 1 of an n-tile
+  float* row = partial + column * 27 * Cin * Cout;
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy) {
+    float* tap =
+        row + static_cast<int64_t>((dx * 3 + dy) * 3 + dz) * Cin * Cout;
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      const int ci = ci0 + mi * 16 + g;
+#pragma unroll
+      for (int nj = 0; nj < 2 * NB; ++nj) {
+        const int co = co0 + cw + nj * 8 + 2 * t;
+        if (co < Cout) {
+          *reinterpret_cast<float2*>(tap + ci * Cout + co) =
+              make_float2(acc[dy][mi][nj][0], acc[dy][mi][nj][1]);
+          *reinterpret_cast<float2*>(tap + (ci + 8) * Cout + co) =
+              make_float2(acc[dy][mi][nj][2], acc[dy][mi][nj][3]);
+        }
+      }
+    }
+  }
+}
+
 bool bad_volume(int B, int X, int Y, int Z, int Cin, int Cout) {
   return B < 1 || X < 1 || Y < 1 || Z < 1 || Cin < 1 || Cout < 1;
 }
@@ -1005,6 +1275,77 @@ int launch_band_conv_wgmma(const void* x, const void* w, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// How K9 cuts a call. "direct": 32 x 32 channel slices per dx, G position
+// groups sharing out kDwBlocks blocks (at least 1, at most one a plane).
+// "mma": input channels in blocks of 32 (16 where Cin is an odd multiple of
+// 16), output channels in blocks of 16 NB WN: two groups of 9 warps of 16
+// (or, with 16 input channels, 32) channels where Cout needs them, so that
+// a warp holds 48 sums at most; columns of voxel tiles split along x until
+// the card's 132 SMs have four blocks each, as long as a segment keeps 8
+// planes. `rows`: rows of the partials, the groups or the columns.
+struct DwPlan {
+  int mt, nb, wn, nci, nco, nyt, nzt, segs, seg_len;
+  int64_t rows;
+};
+
+DwPlan dw_plan(int B, int X, int Y, int Z, int Cin, int Cout, int variant) {
+  DwPlan p{};
+  if (variant == 1) {
+    p.mt = Cin % 32 == 0 ? 2 : 1;
+    p.nb = p.mt == 1 && Cout > 32 ? 2 : 1;
+    p.wn = Cout > 16 * p.nb ? 2 : 1;
+    p.nci = Cin / (16 * p.mt);
+    p.nco = static_cast<int>(ceil_div(Cout, 16 * p.nb * p.wn));
+    p.nyt = static_cast<int>(ceil_div(Y, kDY));
+    p.nzt = static_cast<int>(ceil_div(Z, kDZ));
+    const int64_t per_plane =
+        static_cast<int64_t>(B) * p.nyt * p.nzt * p.nci * p.nco;
+    const int64_t want = ceil_div(4 * 132, per_plane);
+    const int64_t most = ceil_div(X, 8);
+    p.seg_len = static_cast<int>(ceil_div(X, want < most ? want : most));
+    p.segs = static_cast<int>(ceil_div(X, p.seg_len));
+    p.rows = static_cast<int64_t>(B) * p.segs * p.nyt * p.nzt;
+    return p;
+  }
+  p.nci = static_cast<int>(ceil_div(Cin, kWC));
+  p.nco = static_cast<int>(ceil_div(Cout, kWC));
+  p.nyt = static_cast<int>(ceil_div(Y, kWY));
+  p.nzt = static_cast<int>(ceil_div(Z, kWZ));
+  const int64_t most = kDwBlocks / (3LL * p.nci * p.nco);
+  const int64_t planes = static_cast<int64_t>(B) * X;
+  p.rows = most < 1 ? 1 : (most < planes ? most : planes);
+  return p;
+}
+
+bool dw_mma_takes(int Cin, int Cout, int dtype) {
+  return dtype == kBFloat16 && Cin % 16 == 0 && Cout % 8 == 0;
+}
+
+template <int MT, int NB, int WN>
+int launch_band_dw_mma(const void* x, const void* y, const void* gy,
+                       const void* a, const void* b2, void* partial, int B,
+                       int X, int Y, int Z, int Cin, int Cout, int with_ab,
+                       const DwPlan& p, cudaStream_t st) {
+  using T = __nv_bfloat16;
+  constexpr int kCO = 16 * NB * WN;
+  const int64_t blocks = p.rows * p.nci * p.nco;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t tile = static_cast<size_t>(kDY) * kDZ * (kCO + 8);
+  const size_t smem =
+      sizeof(T) * (static_cast<size_t>(kRing) * kDHalo * (16 * MT + 8) +
+                   2 * (with_ab ? 2 : 1) * tile);
+  auto kernel = band_dw_mma_kernel<MT, NB, WN>;
+  // the limit counts the kernel's static a and b2 as well
+  const cudaError_t status = allow_smem(kernel, smem + sizeof(float) * 2 * kCO);
+  if (status != cudaSuccess) return static_cast<int>(status);
+  kernel<<<static_cast<unsigned>(blocks), kDTaps * 32 * WN, smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y),
+      static_cast<const T*>(gy), static_cast<const float*>(a),
+      static_cast<const float*>(b2), static_cast<float*>(partial), B, X, Y, Z,
+      Cin, Cout, p.nyt, p.nzt, p.segs, p.seg_len, p.nco, with_ab);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace transmf
 
@@ -1083,26 +1424,61 @@ extern "C" int transmf_band_conv(const void* x, const void* w, void* out,
   });
 }
 
+// Rows of K9's float32 partials for a call. variant: 0 "direct", 1 "mma".
+extern "C" int64_t transmf_band_dw_rows(int B, int X, int Y, int Z, int Cin,
+                                        int Cout, int variant) {
+  return transmf::dw_plan(B, X, Y, Z, Cin, Cout, variant).rows;
+}
+
 // K9. x: (B, X, Y, Z, Cin); gy (and y when with_ab): (B, X, Y, Z, Cout) in
 // x's type; a, b2: float32 (Cout,), read when with_ab; dw: float32
-// (3, 3, 3, Cin, Cout). G >= 1 position groups; partial: float32 scratch of
-// G * 27 * Cin * Cout.
+// (3, 3, 3, Cin, Cout); partial: float32 scratch of
+// transmf_band_dw_rows(...) * 27 * Cin * Cout. variant 1 ("mma") needs
+// bfloat16, Cin % 16 == 0, Cout % 8 == 0 and 16-byte aligned x, y, gy;
+// variant 0 ("direct") takes everything.
 extern "C" int transmf_band_dw(const void* x, const void* y, const void* gy,
                                const void* a, const void* b2, void* partial,
                                void* dw, int B, int X, int Y, int Z, int Cin,
-                               int Cout, int with_ab, int G, int dtype,
+                               int Cout, int with_ab, int dtype, int variant,
                                void* stream) {
   using namespace transmf;
-  if (bad_volume(B, X, Y, Z, Cin, Cout) || G < 1) {
+  if (bad_volume(B, X, Y, Z, Cin, Cout) || variant < 0 || variant > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int nyt = static_cast<int>(ceil_div(Y, kWY));
-  const int nzt = static_cast<int>(ceil_div(Z, kWZ));
-  const int ncib = static_cast<int>(ceil_div(Cin, kWC));
-  const int ncob = static_cast<int>(ceil_div(Cout, kWC));
-  const int64_t blocks = static_cast<int64_t>(G) * 3 * ncib * ncob;
-  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
+  const DwPlan p = dw_plan(B, X, Y, Z, Cin, Cout, variant);
+  if (variant == 1) {
+    const auto misaligned = [](const void* ptr) {
+      return reinterpret_cast<uintptr_t>(ptr) % 16 != 0;
+    };
+    if (!dw_mma_takes(Cin, Cout, dtype) || misaligned(x) || misaligned(gy) ||
+        (with_ab && misaligned(y))) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const auto run = [&](auto mt, auto nb, auto wn) {
+      return launch_band_dw_mma<decltype(mt)::value, decltype(nb)::value,
+                                decltype(wn)::value>(
+          x, y, gy, a, b2, partial, B, X, Y, Z, Cin, Cout, with_ab, p, st);
+    };
+    using I1 = std::integral_constant<int, 1>;
+    using I2 = std::integral_constant<int, 2>;
+    int status = static_cast<int>(cudaErrorInvalidValue);
+    switch (p.mt * 100 + p.nb * 10 + p.wn) {
+      case 111: status = run(I1{}, I1{}, I1{}); break;
+      case 112: status = run(I1{}, I1{}, I2{}); break;
+      case 122: status = run(I1{}, I2{}, I2{}); break;
+      case 211: status = run(I2{}, I1{}, I1{}); break;
+      case 212: status = run(I2{}, I1{}, I2{}); break;
+      default: break;
+    }
+    if (status != cudaSuccess) return status;
+    reduce_rows(static_cast<const float*>(partial), static_cast<float*>(dw),
+                p.rows, 27 * Cin * Cout, 1, st);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int G = static_cast<int>(p.rows);
+  const int64_t blocks = static_cast<int64_t>(G) * 3 * p.nci * p.nco;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch(dtype, [&](auto tag) {
     using T = decltype(tag);
     auto kernel = with_ab ? band_dw_kernel<T, true> : band_dw_kernel<T, false>;
@@ -1110,7 +1486,7 @@ extern "C" int transmf_band_dw(const void* x, const void* y, const void* gy,
         static_cast<const T*>(x), static_cast<const T*>(y),
         static_cast<const T*>(gy), static_cast<const float*>(a),
         static_cast<const float*>(b2), static_cast<float*>(partial), B, X, Y, Z,
-        Cin, Cout, nyt, nzt, ncib, ncob, G);
+        Cin, Cout, p.nyt, p.nzt, p.nci, p.nco, G);
     reduce_rows(static_cast<const float*>(partial), static_cast<float*>(dw), G,
                 27 * Cin * Cout, 1, st);
   });

@@ -20,12 +20,19 @@
 //
 // Bound on the card: at the model's shape (batch*heads 24, 1,573 queries,
 // 3,146 keys, head 32) the three kernels do 15.2, 22.8 and 30.4 GFLOP on 14
-// to 22 MB, so the operations bound them. All arithmetic is float32 on the
-// CUDA cores (the float32 check against the plain version holds to 1e-4,
-// which TF32 or bfloat16 tensor-core products would not), so the rate to
-// approach is the 67 TFLOP/s of the float32 pipes.
+// to 22 MB, so the operations bound them.
 //
-// Design, shared by the three kernels. A block of 4 warps keeps 32 RESIDENT
+// The forward has two variants, chosen by the caller from the dtype and the
+// head dim alone (ops/flash_attention.py::attention_variant, K2's rule):
+// "mma" for bfloat16 with D = 16, 32, 64 or 128, K2's tensor-core forward
+// with the logsumexp store compiled in (attention_mma.cuh); "rows" for
+// float32 and other head dims, the resident-row design below. K11 and K12
+// are "rows" only: float32 arithmetic on the CUDA cores (the float32 check
+// against the plain version holds to 1e-4, which TF32 or bfloat16
+// tensor-core products would not), whose rate is the 67 TFLOP/s of the
+// float32 pipes.
+//
+// "rows", shared by the three kernels. A block of 4 warps keeps 32 RESIDENT
 // rows in shared memory (queries for the forward and dq, keys for dk/dv),
 // 8 per warp, and STREAMS the other side through shared memory in chunks of
 // 32 rows, one per lane:
@@ -46,6 +53,7 @@
 // saved lse and never recompute a max. Offsets are 64-bit. The accumulator
 // width is a template parameter (1, 2 or 4 columns per lane for D <= 32, 64,
 // 128), so that D = 32 does not pay registers for D = 128.
+#include "attention_mma.cuh"
 #include "flash_rows.cuh"
 
 namespace transmf {
@@ -214,12 +222,21 @@ __global__ void __launch_bounds__(kWarps * 32)
 }  // namespace transmf
 
 // q: (BH, N, D); k, v: (BH, M, D); o: (BH, N, D); lse: (BH, N) float32.
-// Needs 1 <= D <= 128, N >= 1, M >= 1.
+// Needs 1 <= D <= 128, N >= 1, M >= 1. variant 1 ("mma", attention_mma.cuh):
+// bfloat16, D in {16, 32, 64, 128}, 16-byte aligned q, k, v, o; variant 0
+// ("rows"): any dtype and D.
 extern "C" int transmf_flash_fwd(const void* q, const void* k, const void* v,
                                  void* o, void* lse, int BH, int N, int M,
-                                 int D, float scale, int dtype, void* stream) {
-  return transmf::launch_flash_fwd<true>(q, k, v, o, lse, BH, N, M, D, scale,
-                                         dtype, stream);
+                                 int D, float scale, int dtype, int variant,
+                                 void* stream) {
+  using namespace transmf;
+  if (variant == 0) {
+    return launch_flash_fwd<true>(q, k, v, o, lse, BH, N, M, D, scale, dtype,
+                                  stream);
+  }
+  if (variant != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_attention_mma<true>(q, k, v, o, lse, BH, N, M, D, scale,
+                                    dtype, stream);
 }
 
 // q, g, dq: (BH, N, D); k, v: (BH, M, D); lse, delta: (BH, N) float32.

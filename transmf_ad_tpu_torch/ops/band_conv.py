@@ -15,6 +15,11 @@ shift).
   full-width models); "direct", float32 FMAs on the CUDA cores, for float32
   and for other channel counts. The choice depends on dtype and shape alone;
   a launch of either that fails raises. `BAND_CONV.by_variant` counts them.
+- K9 has two variants as well, named by `dw_variant(dtype, cin, cout)`:
+  "mma", an implicit GEMM on the tensor cores over the voxels, for bfloat16
+  with Cin % 16 == 0 and Cout % 8 == 0 (both weight gradients of the
+  full-width models), and "direct" otherwise; `BAND_DW.by_variant` counts
+  them.
 - `band_conv3d_stats` (training): K8 with the BatchNorm sums of its float32
   accumulator, float32 (2, Cout) [sum, sum of squares] over B, X, Y, Z, where
   the JAX op returns per-lane (2, Z * Cout) sums that its caller folds at once
@@ -55,10 +60,7 @@ BAND_DW = Kernel(
               INT, INT, INT),
     source="transmf_ad_tpu_torch/csrc/band_conv.cu",
     replaces="transmf_ad_tpu/ops/band_conv.py:378")
-
-# K9 blocks in all: a multiple of the H100's 132 SMs at 2 and at 3 resident
-# blocks per SM; they share out as position groups x (dx, 32 ci, 32 co) slices
-_DW_BLOCKS = 6 * 132
+DW_VARIANTS = ("direct", "mma")  # K9's, by their code in the C interface
 
 
 def _oidhw(w: torch.Tensor) -> torch.Tensor:
@@ -120,12 +122,33 @@ def variant(dtype: torch.dtype, cin: int, cout: int) -> str:
     return "direct"
 
 
-@functools.cache
-def _blocks_fn():
-    fn = library().transmf_band_blocks
+def dw_variant(dtype: torch.dtype, cin: int, cout: int) -> str:
+    """The K9 variant a CUDA launch takes: "mma" (tensor cores) or "direct"
+    (CUDA cores), from the dtype and the channel counts alone."""
+    if dtype == torch.bfloat16 and cin % 16 == 0 and cout % 8 == 0:
+        return "mma"
+    return "direct"
+
+
+def _int64_fn(entry):
+    fn = getattr(library(), entry)
     fn.argtypes = [INT] * 7
     fn.restype = ctypes.c_int64
     return fn
+
+
+@functools.cache
+def _blocks_fn():
+    """K8's spatial blocks for (B, X, Y, Z, Cin, Cout, variant code): the
+    rows of its statistics partials."""
+    return _int64_fn("transmf_band_blocks")
+
+
+@functools.cache
+def _dw_rows_fn():
+    """The rows of K9's partials for (B, X, Y, Z, Cin, Cout, variant
+    code)."""
+    return _int64_fn("transmf_band_dw_rows")
 
 
 def _check(name, x, w):
@@ -169,7 +192,7 @@ def band_dw(x, gy, y=None, a=None, b2=None) -> torch.Tensor:
     the input x and the output gradient gy; with the conv output y and the
     float32 (Cout,) cotangents a (of the sums) and b2 (twice that of the
     sums of squares), from yhat = gy + round(a + y * b2). Kernel K9 on CUDA
-    tensors; the plain version on CPU."""
+    tensors (the variant `dw_variant` names); the plain version on CPU."""
     if (y is None) != (a is None) or (a is None) != (b2 is None):
         raise ValueError("band_dw: y, a and b2 go together")
     if x.device.type == "cpu":
@@ -191,17 +214,18 @@ def band_dw(x, gy, y=None, a=None, b2=None) -> torch.Tensor:
                     or not v.is_contiguous() or tuple(v.shape) != (cout,)):
                 raise ValueError(f"{name}: a, b2 must be contiguous float32 "
                                  f"({cout},) on {x.device}")
-    slices = 3 * -(-cin // 32) * -(-cout // 32)
-    groups = max(1, min(_DW_BLOCKS // slices, b * X))
-    partial = torch.empty(groups, 27 * cin * cout, dtype=torch.float32,
+    which = dw_variant(x.dtype, cin, cout)
+    code = DW_VARIANTS.index(which)
+    partial = torch.empty(_dw_rows_fn()(b, X, Y, Z, cin, cout, code),
+                          27 * cin * cout, dtype=torch.float32,
                           device=x.device)
     dw = torch.empty(3, 3, 3, cin, cout, dtype=torch.float32, device=x.device)
     BAND_DW.launch(x.device, x.data_ptr(),
                    y.data_ptr() if with_ab else None, gy.data_ptr(),
                    a.data_ptr() if with_ab else None,
                    b2.data_ptr() if with_ab else None, partial.data_ptr(),
-                   dw.data_ptr(), b, X, Y, Z, cin, cout, int(with_ab), groups,
-                   dtype)
+                   dw.data_ptr(), b, X, Y, Z, cin, cout, int(with_ab), dtype,
+                   code, variant=which)
     return dw
 
 

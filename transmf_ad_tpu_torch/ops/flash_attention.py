@@ -11,8 +11,11 @@ dtype and head dim alone; `ATTENTION.by_variant` counts the launches of each.
 `flash_attention`, which `attention_core` takes above `FLASH_MIN_KEYS` keys:
 the forward is K10 and saves the float32 logsumexp of every query row; the
 backward is K11 (dq) and K12 (dk, dv), which recompute the probabilities from
-that logsumexp (csrc/flash_attention.cu). The TPU kernels' `block_q`/`block_k`
-arguments tile VMEM and have no counterpart here.
+that logsumexp (csrc/flash_attention.cu). K10 has K2's two variants by K2's
+rule (`attention_variant`): "mma", K2's tensor-core forward with the
+logsumexp store (csrc/attention_mma.cuh), and "rows"; `FLASH_FWD.by_variant`
+counts them. K11 and K12 run on the CUDA cores. The TPU kernels'
+`block_q`/`block_k` arguments tile VMEM and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -28,14 +31,14 @@ ATTENTION = Kernel(
     argtypes=(PTR, PTR, PTR, PTR, INT, INT, INT, INT, FLOAT, INT, INT),
     source="transmf_ad_tpu_torch/csrc/attention.cu",
     replaces="transmf_ad_tpu/ops/flash_attention.py:78")
-ATTENTION_VARIANTS = ("rows", "mma")  # K2's, by their code in the C interface
+ATTENTION_VARIANTS = ("rows", "mma")  # K2's and K10's, by their C code
 MMA_HEAD_DIMS = (16, 32, 64, 128)
 
 _FLASH_SOURCE = "transmf_ad_tpu_torch/csrc/flash_attention.cu"
 _FLASH_SIZES = (INT, INT, INT, INT, FLOAT, INT)  # BH, N, M, D, scale, dtype
 FLASH_FWD = Kernel(
     name="flash_fwd", entry="transmf_flash_fwd",
-    argtypes=(PTR,) * 5 + _FLASH_SIZES, source=_FLASH_SOURCE,
+    argtypes=(PTR,) * 5 + _FLASH_SIZES + (INT,), source=_FLASH_SOURCE,
     replaces="transmf_ad_tpu/ops/flash_attention.py:222")
 FLASH_DQ = Kernel(
     name="flash_dq", entry="transmf_flash_dq",
@@ -72,8 +75,8 @@ def attention_bwd_reference(q, k, v, g, scale: float):
 
 
 def attention_variant(dtype: torch.dtype, d: int) -> str:
-    """The K2 variant a CUDA launch takes: "mma" (tensor cores) or "rows"
-    (CUDA cores), from the dtype and the head dim alone."""
+    """The K2 and K10 variant a CUDA launch takes: "mma" (tensor cores) or
+    "rows" (CUDA cores), from the dtype and the head dim alone."""
     if dtype == torch.bfloat16 and d in MMA_HEAD_DIMS:
         return "mma"
     return "rows"
@@ -178,15 +181,17 @@ def flash_bwd_reference(q, k, v, o, lse, g, scale: float):
 
 def flash_fwd(q, k, v, scale: float):
     """(out, lse) of `flash_fwd_reference`: kernel K10 on CUDA tensors
-    (D <= 128, any N and M), the plain version on CPU tensors."""
+    (D <= 128, any N and M; the variant `attention_variant` names), the
+    plain version on CPU tensors."""
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, scale)
     sizes, dtype = _check_qkv("flash_attention", q, k, v)
+    which = attention_variant(q.dtype, q.shape[3])
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     FLASH_FWD.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      out.data_ptr(), lse.data_ptr(), *sizes, float(scale),
-                     dtype)
+                     dtype, ATTENTION_VARIANTS.index(which), variant=which)
     return out, lse
 
 

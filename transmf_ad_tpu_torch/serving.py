@@ -27,11 +27,13 @@ def resolve_dtype(dtype, device: torch.device) -> torch.dtype:
 
 def make_inference_fn(model, device="cuda", dtype="auto",
                       adversarial: Optional[bool] = None):
-    """Move `model` to `device` in eval mode and return fn(mri, pet): two
-    (B, X, Y, Z) volumes (tensors or arrays) -> (B, 2) float32 softmax
-    probabilities on `device`. The forward computes in `dtype` with the
-    model's float32 parameters. An adversarial model returns (logits, d_mri,
-    d_pet) and the logits are taken from it; any other returns the logits.
+    """Move `model` to `device` in eval mode and return fn(*vols): one
+    (B, X, Y, Z) volume (tensor or array) per modality of the model, each
+    given a trailing channel axis, -> (B, 2) float32 softmax probabilities
+    on `device`; a wrong number of volumes raises from the model's forward.
+    The forward computes in `dtype` with the model's float32 parameters. An
+    adversarial model returns (logits, d_mri, d_pet) and the logits are
+    taken from it; any other returns the logits.
     `adversarial` is read from the registry (`models.ADVERSARIAL`) unless it
     is given, as it must be for a model the registry does not hold."""
     device = torch.device(device)
@@ -41,10 +43,10 @@ def make_inference_fn(model, device="cuda", dtype="auto",
     model = model.to(device).eval()
 
     @torch.inference_mode()
-    def infer(mri, pet):
+    def infer(*vols):
         vols = [torch.as_tensor(v).to(device=device, dtype=dt)[..., None]
-                for v in (mri, pet)]
-        out = model(*vols)
+                for v in vols]
+        out = model(*vols, train=False)
         logits = out[0] if adversarial else out
         return torch.softmax(logits.float(), dim=-1)
 
