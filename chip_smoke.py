@@ -23,16 +23,17 @@ before the final line:
             its bytes (inputs read once, outputs written once) over 3.35 TB/s
             and its operations over the card's peak for their type; and,
             where one PyTorch call computes the same function, that call's
-            time (a yardstick: nothing in the port calls it for that); for
-            K2, K8, K9 and K10 the variant the call took ("mma" on the tensor
-            cores for bfloat16 at the models' widths, "rows" / "direct" on
-            the CUDA cores otherwise) and, in bfloat16 at the main shapes,
-            the CUDA-core variant's time in the same run, with edge cases of
-            the tensor-core variants (one and two planes, tiles one below,
-            at and one above their size, weights staged by taps, segments
-            along x, blocks of channels; one query, one key, partial chunks,
-            every head dim); then K2 and K10 side by side at 1,573 and 3,146
-            keys
+            time (a yardstick: nothing in the port calls it for that; for
+            K11 and K12 SDPA's forward and backward, and its backward alone
+            with the backend it took); for K2 and K8-K12 the variant the call
+            took ("mma" on the tensor cores for bfloat16 at the models'
+            widths, "rows" / "direct" on the CUDA cores otherwise) and, in
+            bfloat16 at the main shapes, the CUDA-core variant's time in the
+            same run, with edge cases of the tensor-core variants (one and
+            two planes, tiles one below, at and one above their size,
+            weights staged by taps, segments along x, blocks of channels;
+            one query, one key, partial chunks, every head dim); then K2 and
+            K10 side by side at 1,573 and 3,146 keys
 4. serving  full-width ModelAd (dim 128, depth 3, 4 heads x 32, mlp 512) in
             bfloat16, random weights and BN statistics from a seeded
             torch.Generator, answers 6 batch-8 requests of 91x109x91
@@ -57,7 +58,7 @@ before the final line:
             182x218x182 MRI+PET (the last 2 timed): the stem, both stage-2
             convs (K8) and the lane-vector pools run at full resolution, and
             every launch of K8 and K2 is of the "mma" variant (asserted, in
-            phases 9-11 too, for K9 and K10 as well); then card float32
+            phases 9-11 too, for K9-K12 as well); then card float32
             against the CPU at 35x37x33 with every body conv on the band
             route
 9. full-resolution train  the train step at batch 6, 182x218x182: 2 warm-up
@@ -142,10 +143,9 @@ RES_TRAIN_KERNELS = ("affine_act_pool", "stem_conv_stats", "stem_dw",
                      "affine_act_pool_bwd", "band_conv", "band_dw",
                      "flash_fwd", "flash_dq", "flash_dkv")
 ATTENTION_CALLS = 6  # per forward: depth 3, one per modality
-# the variant every launch of K2, K8, K9 and K10 must take on the bfloat16
-# paths
+# the variant every launch of K2 and K8-K12 must take on the bfloat16 paths
 MMA = {"attention_fwd": "mma", "band_conv": "mma", "band_dw": "mma",
-       "flash_fwd": "mma"}
+       "flash_fwd": "mma", "flash_dq": "mma", "flash_dkv": "mma"}
 
 
 def _median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -219,6 +219,9 @@ class Case:
     # the design the tensor-core variant replaced, timed in the same run
     earlier: object = None
     timed: bool = True  # an edge case is checked and not timed
+    # args -> (a second library call to time, what it is): K11 and K12's
+    # SDPA backward alone, its forward run outside the timed region
+    library_part: object = None
 
 
 def _by_sample(plain, batched, summed=()):
@@ -401,6 +404,16 @@ def _kernel_cases(g):
         out = F.scaled_dot_product_attention(q, k, v, scale=scale)
         return torch.autograd.grad(out, (q, k, v), gg)
 
+    def lib_attn_bwd_alone(q, k, v, gg, lse, delta, scale):
+        """the library call's backward alone, the yardstick of K11 + K12:
+        its forward runs here, outside the timed call; the name of its
+        backward node says which backend SDPA took"""
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(q, k, v, scale=scale)
+        return (lambda: torch.autograd.grad(out, (q, k, v), gg,
+                                            retain_graph=True),
+                f"SDPA backward alone, {out.grad_fn.name()}")
+
     def band_direct(stats):
         """K8's "direct" variant on the arguments of `_band_forward`,
         whatever their dtype"""
@@ -440,6 +453,20 @@ def _kernel_cases(g):
                             _build.DTYPE_CODES[q.dtype], 0, variant="rows")
         return out, lse
 
+    def bwd_rows(kernel):
+        """K11's or K12's "rows" variant on the arguments of `flash_dq` /
+        `flash_dkv`, whatever the dtype"""
+        def run(q, k, v, gg, lse, delta, scale):
+            b, h, n, d = q.shape
+            outs = ((torch.empty_like(q),) if kernel is fa.FLASH_DQ
+                    else (torch.empty_like(k), torch.empty_like(v)))
+            kernel.launch(q.device, *(t.data_ptr() for t in
+                                      (q, k, v, gg, lse, delta, *outs)),
+                          b * h, n, k.shape[2], d, float(scale),
+                          _build.DTYPE_CODES[q.dtype], 0, variant="rows")
+            return outs if len(outs) > 1 else outs[0]
+        return run
+
     def dw_direct(x, gy, y=None, a=None, b2=None):
         """K9's "direct" variant on the arguments of `band_dw`, whatever
         their dtype"""
@@ -473,10 +500,10 @@ def _kernel_cases(g):
                                              _sums(1e-2)])
     conv_stats = conv[0] + [_sums(1e-4)], conv[1] + [_sums(1e-2)]
     dw_tol = [_sums(1e-4)], [_sums(1e-2)]
-    # K10-K12: float32 arithmetic on both sides, sums over up to 3,146
-    # signed terms in another order: 1e-4 of the output's scale; bfloat16
-    # adds the one rounding of the output (one ulp); the float32 lse 1e-5
-    # absolute
+    # K10-K12: float32 sums over up to 3,146 signed terms in another order
+    # (the "mma" variants' bfloat16 products are exact, P and dS enter as
+    # hi + lo within 2^-17): 1e-4 of the output's scale; bfloat16 adds the
+    # one rounding of the output (one ulp); the float32 lse 1e-5 absolute
     flash1 = [_scaled(0.0, 1e-4)], [_scaled(BF16_RTOL, 1e-4)]
     flash2 = flash1[0] * 2, flash1[1] * 2
     flash_fwd_tol = (flash1[0] + [_elem(0.0, 1e-5)],
@@ -576,15 +603,20 @@ def _kernel_cases(g):
     for b, h, n, d, m in (FLASH_SHAPE, (1, 4, 37, 48, 2100),
                           (1, 2, 300, 32, 100)):
         shape = f"({b * h},{n},{m},{d})"
+        mma_bwd = d in fa.BWD_MMA_HEAD_DIMS
         cases += [
             Case("flash_fwd", shape + " + lse", fa.flash_fwd,
                  fa.flash_fwd_reference, attn(b, h, n, d, m), *flash_fwd_tol,
                  attn_ops, lib_attn,
                  flash_rows if d in fa.MMA_HEAD_DIMS else None),
             Case("flash_dq", shape, fa.flash_dq, fa.flash_dq_reference,
-                 attn_bwd(b, h, n, d, m), *flash1, dq_ops, lib_attn_bwd),
+                 attn_bwd(b, h, n, d, m), *flash1, dq_ops, lib_attn_bwd,
+                 bwd_rows(fa.FLASH_DQ) if mma_bwd else None,
+                 library_part=lib_attn_bwd_alone),
             Case("flash_dkv", shape, fa.flash_dkv, fa.flash_dkv_reference,
-                 attn_bwd(b, h, n, d, m), *flash2, dkv_ops, lib_attn_bwd)]
+                 attn_bwd(b, h, n, d, m), *flash2, dkv_ops, lib_attn_bwd,
+                 bwd_rows(fa.FLASH_DKV) if mma_bwd else None,
+                 library_part=lib_attn_bwd_alone)]
     cases += [
         Case("flash_fwd", CROSSOVER["flash_fwd", fn], fa.flash_fwd,
              fa.flash_fwd_reference, attn(2, fh, fn, fd), *flash_fwd_tol,
@@ -658,6 +690,20 @@ def _kernel_cases(g):
                           fa.flash_fwd, fa.flash_fwd_reference,
                           attn(b, h, n, d, m), *flash_fwd_tol, attn_ops,
                           timed=False))
+    # edge cases of K11 and K12 "mma" (float32 and D = 128 take "rows"): one
+    # query, two keys (with one key, p = 1 and dq = dk = 0: both sides give
+    # rounding noise, which has no scale to hold it to), partial chunks and
+    # blocks on both axes, a chunk and one, every head dim
+    for b, h, n, d, m in ((1, 2, 1, 32, 70), (1, 2, 40, 32, 2),
+                          (1, 2, 70, 32, 17), (1, 2, 65, 32, 65),
+                          (2, 2, 100, 16, 100), (2, 2, 100, 64, 130),
+                          (1, 2, 100, 128, 130)):
+        shape = f"({b * h},{n},{m},{d})"
+        cases += [
+            Case("flash_dq", shape, fa.flash_dq, fa.flash_dq_reference,
+                 attn_bwd(b, h, n, d, m), *flash1, dq_ops, timed=False),
+            Case("flash_dkv", shape, fa.flash_dkv, fa.flash_dkv_reference,
+                 attn_bwd(b, h, n, d, m), *flash2, dkv_ops, timed=False)]
     for cin, cout in ((32, 32), (32, 64)):
         for with_ab in (True, False):
             cases.append(Case(
@@ -776,6 +822,10 @@ def check_kernels(results, only=()):
                 line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                          f"bound {bound_ms:.4f} ms by {bound_by}, library "
                          f"call {lib_s}")
+                if case.library_part is not None:
+                    part, what = case.library_part(*args)
+                    line += f", {what} {_median_ms(part):.4f} ms"
+                    del part
                 if case.earlier is not None and dt == torch.bfloat16:
                     was = _median_ms(lambda: case.earlier(*args))
                     line += (f", CUDA-core variant {was:.4f} ms "

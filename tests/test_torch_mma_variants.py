@@ -1,10 +1,11 @@
 """The tensor-core variants of K2 (attention forward), K8 (band conv), K9
-(its weight gradient) and K10 (flash forward) of the PyTorch/CUDA port, as
-far as a CPU can hold them: which variant a CUDA launch takes for which
-dtype and shape, and the arithmetic of K2 "mma", K10 "mma" and K9 "mma",
-emulated in plain PyTorch, against the float32 plain versions at the
-tolerances the card's check uses. The kernels themselves run only on a GPU
-(`chip_smoke.py` phase 3, `tests/test_torch_package.py -m cuda`).
+(its weight gradient), K10 (flash forward), K11 (flash dq) and K12 (flash
+dk, dv) of the PyTorch/CUDA port, as far as a CPU can hold them: which
+variant a CUDA launch takes for which dtype and shape, and the arithmetic of
+K2, K9, K10, K11 and K12 "mma", emulated in plain PyTorch, against the
+float32 plain versions at the tolerances the card's check uses. The kernels
+themselves run only on a GPU (`chip_smoke.py` phase 3,
+`tests/test_torch_package.py -m cuda`).
 """
 
 import math
@@ -298,3 +299,141 @@ def test_k9_mma_split_order_meets_the_tolerance(with_ab):
     scale = float(ref.abs().max())
     assert err <= 1e-2 * scale
     assert err <= 1e-5 * scale, err / scale
+
+
+def test_flash_bwd_variant_full_width_bf16_is_mma():
+    """The backward of every flash call of the full-width models (head dim
+    32) takes the tensor cores in bfloat16 and the CUDA cores in float32."""
+    for name in ("ad", "transformer_res"):
+        for d in {m.dim_head for m in build_model(name).modules()
+                  if hasattr(m, "dim_head")}:
+            assert fa.flash_bwd_variant(BF16, d) == "mma"
+            assert fa.flash_bwd_variant(F32, d) == "rows"
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (BF16, 16, "mma"), (BF16, 32, "mma"), (BF16, 64, "mma"),
+    (BF16, 128, "rows"), (BF16, 48, "rows"), (BF16, 24, "rows"),
+    (F32, 16, "rows"), (F32, 32, "rows"), (F32, 64, "rows"),
+])
+def test_flash_bwd_variant_by_dtype_and_head_dim(dtype, d, want):
+    """The rule of K11 and K12: K2's head dims but 128, whose accumulators
+    and score tiles K12 could not keep in registers."""
+    assert fa.flash_bwd_variant(dtype, d) == want
+    assert want in fa.ATTENTION_VARIANTS
+
+
+def _bwd_inputs(seed, bh, n, m, d):
+    """bfloat16 q, k, v, an output gradient g, and the plain forward's
+    logsumexp and delta = rowsum(g * out), as chip_smoke builds them."""
+    q, k, v = _qkv(seed, bh, n, m, d)
+    rng = np.random.default_rng(seed + 1)
+    g = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)
+                         ).to(BF16)
+    out, lse = fa.flash_fwd_reference(q, k, v, d ** -0.5)
+    return q, k, v, g, lse, fa.flash_delta(out, g), d ** -0.5
+
+
+def _product(a, b, split):
+    """a b with the float32 a as bfloat16 fragments: hi = bf16(a), plus
+    lo = bf16(a - hi) with `split`; b is bfloat16 already; float32 sums."""
+    hi = _bf16(a)
+    out = torch.matmul(hi, b)
+    if split:
+        out = out + torch.matmul(_bf16(a - hi), b)
+    return out
+
+
+def _log2_domain(scale, lse):
+    """scale * log2(e) and lse * log2(e) in float32, as the kernels take
+    them (once a row or a column)."""
+    log2e = torch.tensor(math.log2(math.e), dtype=F32)
+    return torch.tensor(scale, dtype=F32) * log2e, lse * log2e
+
+
+def emulate_k11_mma(q, k, v, g, lse, delta, scale, split=True):
+    """K11 "mma" in plain PyTorch: chunks of 64 keys; s = q k^T and dp =
+    g v^T of bfloat16 values (exact in float32); p = exp2(s * scale *
+    log2(e) - lse * log2(e)); ds = p (dp - delta) in float32; dq += ds k with
+    ds as hi + lo bfloat16 (a single bf16 ds without `split`); dq * scale
+    rounded once."""
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    c, lse2 = _log2_domain(scale, lse)
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, k.shape[-2], CHUNK):
+        kc, vc = kf[..., k0:k0 + CHUNK, :], vf[..., k0:k0 + CHUNK, :]
+        s = torch.matmul(qf, kc.transpose(-1, -2))
+        dp = torch.matmul(gf, vc.transpose(-1, -2))
+        p = torch.exp2(s * c - lse2[..., None])
+        acc = acc + _product(p * (dp - delta[..., None]), kc, split)
+    return (acc * scale).to(q.dtype)
+
+
+def emulate_k12_mma(q, k, v, g, lse, delta, scale, split_p=True,
+                    split_ds=True):
+    """K12 "mma" in plain PyTorch: the transposed products over chunks of 64
+    queries; s^T = k q^T, dp^T = v g^T; p^T and ds^T in float32 with the
+    chunk's lse and delta by column; dv += p^T g and dk += ds^T q with p^T
+    and ds^T as hi + lo bfloat16 (single bf16 without `split_p` /
+    `split_ds`); dk * scale and dv rounded once."""
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    c, lse2 = _log2_domain(scale, lse)
+    dk, dv = torch.zeros(k.shape), torch.zeros(v.shape)
+    for q0 in range(0, q.shape[-2], CHUNK):
+        cols = slice(q0, q0 + CHUNK)
+        qc, gc = qf[..., cols, :], gf[..., cols, :]
+        st = torch.matmul(kf, qc.transpose(-1, -2))
+        dpt = torch.matmul(vf, gc.transpose(-1, -2))
+        pt = torch.exp2(st * c - lse2[..., None, cols])
+        dst = pt * (dpt - delta[..., None, cols])
+        dv = dv + _product(pt, gc, split_p)
+        dk = dk + _product(dst, qc, split_ds)
+    return (dk * scale).to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_misses(out, ref):
+    """chip_smoke's bfloat16 tolerance for K10-K12, 1e-4 of the output's
+    scale plus one ulp: the elements outside it and the worst error as a
+    multiple of it."""
+    err = (out.float() - ref.float()).abs()
+    tol = 1e-4 * float(ref.float().abs().max()) + RTOL * ref.float().abs()
+    return int((err > tol).sum()), float((err / tol).max())
+
+
+BWD_KEYS = [150, 1573, 3146]  # 300 queries: partial chunks on both axes
+
+
+@pytest.mark.parametrize("m", BWD_KEYS)
+def test_k11_k12_mma_arithmetic_meets_the_tolerance(m):
+    """The kernels' arithmetic, P and dS each as hi + lo bfloat16, against
+    `flash_dq_reference` / `flash_dkv_reference` at chip_smoke's bfloat16
+    tolerance for K11 and K12."""
+    args = _bwd_inputs(19, 2, 300, m, 32)
+    dk, dv = emulate_k12_mma(*args)
+    for name, out, ref in (
+            ("dq", emulate_k11_mma(*args), fa.flash_dq_reference(*args)),
+            *zip(("dk", "dv"), (dk, dv), fa.flash_dkv_reference(*args))):
+        missed, worst = _flash_misses(out, ref)
+        assert missed == 0 and worst < 1.0, (name, missed, worst)
+
+
+@pytest.mark.parametrize("m", BWD_KEYS)
+def test_k11_k12_single_bf16_p_or_ds_misses_the_tolerance(m):
+    """Why P and dS are split: with one bfloat16 fragment each term of a
+    product carries up to 2^-9 relative error. Measured with these seeded
+    inputs (2, 300 queries, m keys, 32), elements missed and the worst error
+    as a multiple of the tolerance: dq with a single dS 1,339 of 19,200 at
+    150 keys (worst 6.3x), 1,760 (9.6x) at 1,573, 1,798 (9.2x) at 3,146; dk
+    with a single dS 685 of 9,600 (7.5x), 4,123 of 100,672 (6.7x), 4,990 of
+    201,344 (5.6x); dv with a single P 714 of 9,600 (5.7x), 5,170 of 100,672
+    (6.2x), 10,121 of 201,344 (7.6x). The split versions miss none (worst
+    0.64-0.88x)."""
+    args = _bwd_inputs(19, 2, 300, m, 32)
+    dk, dv = emulate_k12_mma(*args, split_p=False, split_ds=False)
+    for name, out, ref in (
+            ("dq", emulate_k11_mma(*args, split=False),
+             fa.flash_dq_reference(*args)),
+            *zip(("dk", "dv"), (dk, dv), fa.flash_dkv_reference(*args))):
+        missed, worst = _flash_misses(out, ref)
+        assert missed > 0.005 * ref.numel() and worst > 2.0, \
+            (name, missed, worst)

@@ -531,17 +531,19 @@ def test_k9_k10_tensor_core_variants_on_cuda(cuda):
 @pytest.mark.cuda
 def test_k9_k10_mma_autograd_on_cuda(cuda):
     """The tensor-core variants inside their autograd functions, bfloat16:
-    flash_attention's backward (K11, K12) fed the output and logsumexp of
-    K10 "mma" against `flash_bwd_reference` (1e-4 of each gradient's scale
-    plus one ulp), and band_conv3d_stats's weight gradient through K9 "mma"
+    flash_attention's backward (K11 and K12 "mma") fed the output and
+    logsumexp of K10 "mma" against `flash_bwd_reference` (1e-4 of each
+    gradient's scale plus one ulp), and band_conv3d_stats's weight gradient through K9 "mma"
     against the plain dw from the same y, a and b2."""
     q, k, v, g = (torch.randn(1, 2, n, 32, generator=cuda, device="cuda")
                   .bfloat16() for n in (45, 70, 70, 45))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    flash.FLASH_FWD.reset()
+    for kern in (flash.FLASH_FWD, flash.FLASH_DQ, flash.FLASH_DKV):
+        kern.reset()
     out = flash.flash_attention(*leaves, 0.2)
     out.backward(g)
-    assert flash.FLASH_FWD.by_variant == {"mma": 1}
+    for kern in (flash.FLASH_FWD, flash.FLASH_DQ, flash.FLASH_DKV):
+        assert kern.by_variant == {"mma": 1}, kern.name
     ref_out, ref_lse = flash.flash_fwd_reference(q, k, v, 0.2)
     refs = flash.flash_bwd_reference(q, k, v, ref_out, ref_lse, g, 0.2)
     for name, leaf, ref in zip("qkv", leaves, refs):
@@ -563,3 +565,49 @@ def test_k9_k10_mma_autograd_on_cuda(cuda):
     # dw is rounded once to w's bfloat16: one ulp beside the sums' order
     torch.testing.assert_close(dw.float(), ref, rtol=2 ** -7,
                                atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+def test_k11_k12_tensor_core_variants_on_cuda(cuda):
+    """K11 and K12 "mma" at the edges of their tiling against their plain
+    versions: 5, 37 and 1,573 queries (less than a warp's 16, a partial
+    block, the model's 24 x 64 + 37), 100 keys (one partial chunk of K11, a
+    partial block of K12), 2,100 and the model's 3,146, every head dim they
+    take; bfloat16 takes "mma", float32 "rows", and the count per variant
+    says so. Tolerance: chip_smoke's, 1e-4 of each output's scale, plus one
+    ulp in bfloat16."""
+    def r(*s):
+        return torch.randn(*s, generator=cuda, device="cuda")
+
+    for bh, n, m, d in ((2, 5, 100, 32), (3, 37, 2100, 16),
+                        (2, 37, 100, 64), (1, 1573, 100, 64),
+                        (2, 5, 3146, 16), (24, 1573, 3146, 32)):
+        q, k, v, g = r(1, bh, n, d), r(1, bh, m, d), r(1, bh, m, d), \
+            r(1, bh, n, d)
+        for dtype, want in ((torch.bfloat16, "mma"), (torch.float32, "rows")):
+            assert flash.flash_bwd_variant(dtype, d) == want
+            qd, kd, vd, gd = (t.to(dtype) for t in (q, k, v, g))
+            out, lse = flash.flash_fwd_reference(qd, kd, vd, d ** -0.5)
+            args = (qd, kd, vd, gd, lse, flash.flash_delta(out, gd),
+                    d ** -0.5)
+            flash.FLASH_DQ.reset()
+            flash.FLASH_DKV.reset()
+            got = (flash.flash_dq(*args), *flash.flash_dkv(*args))
+            torch.cuda.synchronize()
+            assert flash.FLASH_DQ.by_variant == {want: 1}
+            assert flash.FLASH_DKV.by_variant == {want: 1}
+            refs = (flash.flash_dq_reference(*args),
+                    *flash.flash_dkv_reference(*args))
+            for name, o, ref in zip(("dq", "dk", "dv"), got, refs):
+                rtol = 2 ** -7 if dtype == torch.bfloat16 else 0.0
+                torch.testing.assert_close(
+                    o.float(), ref.float(), rtol=rtol,
+                    atol=1e-4 * float(ref.float().abs().max()),
+                    msg=lambda m_, w=f"{name} {want} {(bh, n, m, d)}":
+                    f"{w}: {m_}")
+    # a head dim the tensor-core variants do not take stays on the CUDA cores
+    q = r(1, 2, 37, 128).bfloat16()
+    out, lse = flash.flash_fwd_reference(q, q, q, 0.1)
+    flash.FLASH_DQ.reset()
+    flash.flash_dq(q, q, q, q, lse, flash.flash_delta(out, q), 0.1)
+    assert flash.FLASH_DQ.by_variant == {"rows": 1}

@@ -25,7 +25,9 @@
 // log2(e), so that the backward's p = exp(s * scale - lse) holds in the
 // natural log; rows past N store nothing. A call with fewer than 132 blocks
 // of 4 warps takes 2 warps or 1 a block, so that the model's 150 tokens
-// still spread over the card.
+// still spread over the card. The chunk copy, A-fragment load, ldmatrix lane
+// offsets and warp count below are shared with the backward kernels
+// (flash_bwd_mma.cuh).
 #pragma once
 
 #include <type_traits>
@@ -37,19 +39,64 @@ namespace transmf {
 namespace {
 
 constexpr unsigned kMmaFull = 0xffffffffu;
-constexpr int kChunk = 64;   // keys per shared-memory chunk
-constexpr int kRowPad = 8;   // bfloat16 elements of padding per K / V row
+constexpr int kChunk = 64;   // streamed rows (keys; K12: queries) a chunk
+constexpr int kRowPad = 8;   // bfloat16 elements of padding per chunk row
 constexpr int kMmaWarps = 4;  // at most; 16 query rows each
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// hi = bf16(a, b), lo = bf16(a - hi.a, b - hi.b), packed.
-__device__ __forceinline__ void split_bf16(float a, float b, unsigned& hi,
-                                           unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const unsigned*>(&h);
-  lo = pack_bf16(a - hf.x, b - hf.y);
+// The A fragments (mma.cuh) of the 16 rows a warp owns of a row-major
+// (rows, 16 KD) bfloat16 matrix: thread (g, t) passes r0 = the warp's first
+// row + g and reads rows r0 and r0 + 8; rows at or past `rows` are zero.
+template <int KD>
+__device__ __forceinline__ void load_a_rows(unsigned (&a)[KD][4],
+                                            const __nv_bfloat16* src, int r0,
+                                            int rows, int t) {
+  constexpr int D = 16 * KD;
+  const int r1 = r0 + 8;
+#pragma unroll
+  for (int kc = 0; kc < KD; ++kc) {
+    const int c = kc * 16 + 2 * t;
+    const unsigned* p0 = reinterpret_cast<const unsigned*>(
+        src + static_cast<int64_t>(r0) * D + c);
+    const unsigned* p1 = reinterpret_cast<const unsigned*>(
+        src + static_cast<int64_t>(r1) * D + c);
+    a[kc][0] = r0 < rows ? p0[0] : 0u;
+    a[kc][1] = r1 < rows ? p1[0] : 0u;
+    a[kc][2] = r0 < rows ? p0[4] : 0u;
+    a[kc][3] = r1 < rows ? p1[4] : 0u;
+  }
+}
+
+// Starts the copy of rows row0 .. row0 + 63 of two row-major (rows, D)
+// bfloat16 matrices a and b into buffer `buf` (of two) of their chunks a_s
+// and b_s in shared memory, rows D + kRowPad elements apart; rows at or past
+// `rows` arrive as zeros. The caller commits the group.
+template <int D>
+__device__ __forceinline__ void copy_chunk_pair(
+    __nv_bfloat16* a_s, __nv_bfloat16* b_s, const __nv_bfloat16* a,
+    const __nv_bfloat16* b, int buf, int row0, int rows, int tid,
+    int nthreads) {
+  constexpr int RS = D + kRowPad, CPR = D / 8;  // CPR: 16-byte pieces a row
+  for (int i = tid; i < kChunk * CPR; i += nthreads) {
+    const int r = i / CPR, c = i % CPR;
+    const bool real = row0 + r < rows;
+    const int64_t off = static_cast<int64_t>(real ? row0 + r : 0) * D + c * 8;
+    const int dst = (buf * kChunk + r) * RS + c * 8;
+    cp_async16(a_s + dst, a + off, real);
+    cp_async16(b_s + dst, b + off, real);
+  }
+}
+
+// Offsets (in elements) of the row a lane hands to ldmatrix.x4 for the B
+// fragments of two neighbouring n-tiles (mma.cuh), in a chunk whose rows are
+// RS elements apart: stored [n][k], read without .trans (lane_nk), or stored
+// [k][n], read with it (lane_kn).
+__device__ __forceinline__ int lane_nk(int lane, int RS) {
+  return ((lane & 7) + (lane >> 4) * 8) * RS + ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ int lane_kn(int lane, int RS) {
+  return ((lane & 7) + ((lane >> 3) & 1) * 8) * RS + (lane >> 4) * 8;
 }
 
 // KD = D / 16. blockDim.x / 32 warps, 16 query rows each. kLse: also the
@@ -63,7 +110,6 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
                          int N, int M, int tiles, float scale_log2e) {
   constexpr int D = 16 * KD;
   constexpr int RS = D + kRowPad;  // row stride, an odd multiple of 16 bytes
-  constexpr int CPR = D / 8;       // 16-byte pieces per row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // K and V, [2][64][RS] each
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -81,31 +127,13 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
   const int r0 = row0 + g, r1 = row0 + g + 8;
 
   auto load_chunk = [&](int buf, int key0) {
-    for (int i = tid; i < kChunk * CPR; i += nthreads) {
-      const int r = i / CPR, c = i % CPR;
-      const bool real = key0 + r < M;
-      const int64_t off = static_cast<int64_t>(real ? key0 + r : 0) * D + c * 8;
-      const int dst = (buf * kChunk + r) * RS + c * 8;
-      cp_async16(ks + dst, k + off, real);
-      cp_async16(vs + dst, v + off, real);
-    }
+    copy_chunk_pair<D>(ks, vs, k, v, buf, key0, M, tid, nthreads);
     cp_async_commit();
   };
   load_chunk(0, 0);
 
   unsigned qa[KD][4];
-#pragma unroll
-  for (int kc = 0; kc < KD; ++kc) {
-    const int c = kc * 16 + 2 * t;
-    const unsigned* p0 = reinterpret_cast<const unsigned*>(
-        q + static_cast<int64_t>(r0) * D + c);
-    const unsigned* p1 = reinterpret_cast<const unsigned*>(
-        q + static_cast<int64_t>(r1) * D + c);
-    qa[kc][0] = r0 < N ? p0[0] : 0u;
-    qa[kc][1] = r1 < N ? p1[0] : 0u;
-    qa[kc][2] = r0 < N ? p0[4] : 0u;
-    qa[kc][3] = r1 < N ? p1[4] : 0u;
-  }
+  load_a_rows<KD>(qa, q, r0, N, t);
 
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
   float acc[2 * KD][4];
@@ -116,10 +144,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
   }
   const bool active = row0 < N;  // the same for the whole warp
   // lane offsets of the ldmatrix rows: K without .trans, V with it
-  const int k_lane =
-      ((lane & 7) + (lane >> 4) * 8) * RS + ((lane >> 3) & 1) * 8;
-  const int v_lane =
-      ((lane & 7) + ((lane >> 3) & 1) * 8) * RS + (lane >> 4) * 8;
+  const int k_lane = lane_nk(lane, RS), v_lane = lane_kn(lane, RS);
 
   const int chunks = (M + kChunk - 1) / kChunk;
   for (int ch = 0; ch < chunks; ++ch) {
@@ -244,14 +269,19 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
   }
 }
 
+// Warps a block for `rows` rows of each of BH (batch, head) pairs, 16 a
+// warp: the most (up to 4) that still give the card's 132 SMs a block each.
+inline int mma_warps(int BH, int rows) {
+  int warps = kMmaWarps;
+  while (warps > 1 && BH * ceil_div(rows, 16 * warps) < 132) warps /= 2;
+  return warps;
+}
+
 template <int KD, bool kLse>
 int launch_mma_width(const void* q, const void* k, const void* v, void* o,
                      void* lse, int BH, int N, int M, float scale,
                      cudaStream_t stream) {
-  // the most warps a block (up to 4) that still give the card's 132 SMs a
-  // block each
-  int warps = kMmaWarps;
-  while (warps > 1 && BH * ceil_div(N, 16 * warps) < 132) warps /= 2;
+  const int warps = mma_warps(BH, N);
   const int tiles = static_cast<int>(ceil_div(N, 16 * warps));
   const int64_t blocks = static_cast<int64_t>(BH) * tiles;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);

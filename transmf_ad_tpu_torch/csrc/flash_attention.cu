@@ -22,15 +22,19 @@
 // 3,146 keys, head 32) the three kernels do 15.2, 22.8 and 30.4 GFLOP on 14
 // to 22 MB, so the operations bound them.
 //
-// The forward has two variants, chosen by the caller from the dtype and the
-// head dim alone (ops/flash_attention.py::attention_variant, K2's rule):
-// "mma" for bfloat16 with D = 16, 32, 64 or 128, K2's tensor-core forward
-// with the logsumexp store compiled in (attention_mma.cuh); "rows" for
-// float32 and other head dims, the resident-row design below. K11 and K12
-// are "rows" only: float32 arithmetic on the CUDA cores (the float32 check
-// against the plain version holds to 1e-4, which TF32 or bfloat16
-// tensor-core products would not), whose rate is the 67 TFLOP/s of the
-// float32 pipes.
+// Each kernel has two variants, chosen by the caller from the dtype and the
+// head dim alone. The forward takes K2's rule
+// (ops/flash_attention.py::attention_variant): "mma" for bfloat16 with D =
+// 16, 32, 64 or 128, K2's tensor-core forward with the logsumexp store
+// compiled in (attention_mma.cuh). K11 and K12 take
+// ops/flash_attention.py::flash_bwd_variant: "mma" for bfloat16 with D = 16,
+// 32 or 64, FlashAttention-2's backward on the tensor cores
+// (flash_bwd_mma.cuh; at D = 128 K12's four accumulators and score tiles
+// would not fit the registers). Every other case is "rows", the
+// resident-row design below: float32 arithmetic on the CUDA cores (the
+// float32 check against the plain version holds to 1e-4, which TF32 or
+// bfloat16 tensor-core products would not), whose rate is the 67 TFLOP/s of
+// the float32 pipes.
 //
 // "rows", shared by the three kernels. A block of 4 warps keeps 32 RESIDENT
 // rows in shared memory (queries for the forward and dq, keys for dk/dv),
@@ -54,6 +58,7 @@
 // width is a template parameter (1, 2 or 4 columns per lane for D <= 32, 64,
 // 128), so that D = 32 does not pay registers for D = 128.
 #include "attention_mma.cuh"
+#include "flash_bwd_mma.cuh"
 #include "flash_rows.cuh"
 
 namespace transmf {
@@ -240,12 +245,19 @@ extern "C" int transmf_flash_fwd(const void* q, const void* k, const void* v,
 }
 
 // q, g, dq: (BH, N, D); k, v: (BH, M, D); lse, delta: (BH, N) float32.
+// variant 1 ("mma", flash_bwd_mma.cuh): bfloat16, D in {16, 32, 64},
+// 16-byte aligned q, k, v, g, dq; variant 0 ("rows"): any dtype and D.
 extern "C" int transmf_flash_dq(const void* q, const void* k, const void* v,
                                 const void* g, const void* lse,
                                 const void* delta, void* dq, int BH, int N,
                                 int M, int D, float scale, int dtype,
-                                void* stream) {
+                                int variant, void* stream) {
   using namespace transmf;
+  if (variant == 1) {
+    return launch_flash_bwd_mma(false, q, k, v, g, lse, delta, dq, nullptr,
+                                BH, N, M, D, scale, dtype, stream);
+  }
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t blocks = grid_blocks(BH, N, M, D);
   if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = static_cast<int>(ceil_div(N, kTile));
@@ -266,12 +278,18 @@ extern "C" int transmf_flash_dq(const void* q, const void* k, const void* v,
 }
 
 // q, g: (BH, N, D); k, v, dk, dv: (BH, M, D); lse, delta: (BH, N) float32.
+// Variants as for transmf_flash_dq, dk and dv 16-byte aligned for "mma".
 extern "C" int transmf_flash_dkv(const void* q, const void* k, const void* v,
                                  const void* g, const void* lse,
                                  const void* delta, void* dk, void* dv, int BH,
                                  int N, int M, int D, float scale, int dtype,
-                                 void* stream) {
+                                 int variant, void* stream) {
   using namespace transmf;
+  if (variant == 1) {
+    return launch_flash_bwd_mma(true, q, k, v, g, lse, delta, dk, dv, BH, N,
+                                M, D, scale, dtype, stream);
+  }
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t blocks = grid_blocks(BH, M, N, D);
   if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = static_cast<int>(ceil_div(M, kTile));

@@ -1,5 +1,5 @@
 // Tensor-core and asynchronous-copy primitives for the bfloat16 kernels that
-// run their products on `mma.sync.m16n8k16` (K2 and K8) and on `wgmma` (K8 at
+// run their products on `mma.sync.m16n8k16` (K2, K8-K12) and on `wgmma` (K8 at
 // the models' widths; its own note below): thin wrappers over the PTX
 // instructions, with the fragment layouts they imply written down once.
 //
@@ -48,6 +48,17 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
+// 4 bytes, the same way (a float of a row vector whose start need not be
+// 16-byte aligned).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool real) {
+  const unsigned bytes = real ? 4u : 0u;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_address(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -88,6 +99,16 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// hi = bf16(a, b), lo = bf16(a - hi.a, b - hi.b), packed: a float32 operand
+// of a bfloat16 product as two fragments, hi + lo within 2^-17 of it.
+__device__ __forceinline__ void split_bf16(float a, float b, unsigned& hi,
+                                           unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = pack_bf16(a - hf.x, b - hf.y);
 }
 
 // Each lane t of a quad (lanes 4 g .. 4 g + 3) holds its own two channels

@@ -13,9 +13,13 @@ the forward is K10 and saves the float32 logsumexp of every query row; the
 backward is K11 (dq) and K12 (dk, dv), which recompute the probabilities from
 that logsumexp (csrc/flash_attention.cu). K10 has K2's two variants by K2's
 rule (`attention_variant`): "mma", K2's tensor-core forward with the
-logsumexp store (csrc/attention_mma.cuh), and "rows"; `FLASH_FWD.by_variant`
-counts them. K11 and K12 run on the CUDA cores. The TPU kernels'
-`block_q`/`block_k` arguments tile VMEM and have no counterpart here.
+logsumexp store (csrc/attention_mma.cuh), and "rows". K11 and K12 have the
+same two by `flash_bwd_variant`: "mma" (FlashAttention-2's backward on the
+tensor cores, csrc/flash_bwd_mma.cuh) for bfloat16 with a head dim of 16, 32
+or 64, "rows" (the CUDA cores) for float32 and other head dims.
+`FLASH_FWD.by_variant`, `FLASH_DQ.by_variant` and `FLASH_DKV.by_variant`
+count them. The TPU kernels' `block_q`/`block_k` arguments tile VMEM and
+have no counterpart here.
 """
 
 from __future__ import annotations
@@ -31,8 +35,9 @@ ATTENTION = Kernel(
     argtypes=(PTR, PTR, PTR, PTR, INT, INT, INT, INT, FLOAT, INT, INT),
     source="transmf_ad_tpu_torch/csrc/attention.cu",
     replaces="transmf_ad_tpu/ops/flash_attention.py:78")
-ATTENTION_VARIANTS = ("rows", "mma")  # K2's and K10's, by their C code
+ATTENTION_VARIANTS = ("rows", "mma")  # K2's and K10-K12's, by their C code
 MMA_HEAD_DIMS = (16, 32, 64, 128)
+BWD_MMA_HEAD_DIMS = (16, 32, 64)  # K11, K12: at 128 the registers run out
 
 _FLASH_SOURCE = "transmf_ad_tpu_torch/csrc/flash_attention.cu"
 _FLASH_SIZES = (INT, INT, INT, INT, FLOAT, INT)  # BH, N, M, D, scale, dtype
@@ -42,11 +47,11 @@ FLASH_FWD = Kernel(
     replaces="transmf_ad_tpu/ops/flash_attention.py:222")
 FLASH_DQ = Kernel(
     name="flash_dq", entry="transmf_flash_dq",
-    argtypes=(PTR,) * 7 + _FLASH_SIZES, source=_FLASH_SOURCE,
+    argtypes=(PTR,) * 7 + _FLASH_SIZES + (INT,), source=_FLASH_SOURCE,
     replaces="transmf_ad_tpu/ops/flash_attention.py:343")
 FLASH_DKV = Kernel(
     name="flash_dkv", entry="transmf_flash_dkv",
-    argtypes=(PTR,) * 8 + _FLASH_SIZES, source=_FLASH_SOURCE,
+    argtypes=(PTR,) * 8 + _FLASH_SIZES + (INT,), source=_FLASH_SOURCE,
     replaces="transmf_ad_tpu/ops/flash_attention.py:361")
 
 MAX_HEAD_DIM = 128
@@ -78,6 +83,14 @@ def attention_variant(dtype: torch.dtype, d: int) -> str:
     """The K2 and K10 variant a CUDA launch takes: "mma" (tensor cores) or
     "rows" (CUDA cores), from the dtype and the head dim alone."""
     if dtype == torch.bfloat16 and d in MMA_HEAD_DIMS:
+        return "mma"
+    return "rows"
+
+
+def flash_bwd_variant(dtype: torch.dtype, d: int) -> str:
+    """The K11 and K12 variant a CUDA launch takes: "mma" (tensor cores) or
+    "rows" (CUDA cores), from the dtype and the head dim alone."""
+    if dtype == torch.bfloat16 and d in BWD_MMA_HEAD_DIMS:
         return "mma"
     return "rows"
 
@@ -208,26 +221,31 @@ def _check_bwd(name: str, q, k, v, g, lse, delta):
 
 
 def flash_dq(q, k, v, g, lse, delta, scale: float):
-    """dq of `flash_dq_reference`: kernel K11 on CUDA tensors, the plain
-    version on CPU tensors. lse, delta: float32 (B, H, N)."""
+    """dq of `flash_dq_reference`: kernel K11 on CUDA tensors (the variant
+    `flash_bwd_variant` names), the plain version on CPU tensors. lse,
+    delta: float32 (B, H, N)."""
     if q.device.type == "cpu":
         return flash_dq_reference(q, k, v, g, lse, delta, scale)
     ins, sizes, dtype = _check_bwd("flash_dq", q, k, v, g, lse, delta)
+    which = flash_bwd_variant(q.dtype, q.shape[3])
     dq = torch.empty_like(q)
     FLASH_DQ.launch(q.device, *ins, dq.data_ptr(), *sizes, float(scale),
-                    dtype)
+                    dtype, ATTENTION_VARIANTS.index(which), variant=which)
     return dq
 
 
 def flash_dkv(q, k, v, g, lse, delta, scale: float):
-    """(dk, dv) of `flash_dkv_reference`: kernel K12 on CUDA tensors, the
-    plain version on CPU tensors. lse, delta: float32 (B, H, N)."""
+    """(dk, dv) of `flash_dkv_reference`: kernel K12 on CUDA tensors (the
+    variant `flash_bwd_variant` names), the plain version on CPU tensors.
+    lse, delta: float32 (B, H, N)."""
     if q.device.type == "cpu":
         return flash_dkv_reference(q, k, v, g, lse, delta, scale)
     ins, sizes, dtype = _check_bwd("flash_dkv", q, k, v, g, lse, delta)
+    which = flash_bwd_variant(q.dtype, q.shape[3])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     FLASH_DKV.launch(q.device, *ins, dk.data_ptr(), dv.data_ptr(), *sizes,
-                     float(scale), dtype)
+                     float(scale), dtype, ATTENTION_VARIANTS.index(which),
+                     variant=which)
     return dk, dv
 
 
