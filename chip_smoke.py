@@ -25,14 +25,15 @@ before the final line:
             where one PyTorch call computes the same function, that call's
             time (a yardstick: nothing in the port calls it for that; for
             K11 and K12 SDPA's forward and backward, and its backward alone
-            with the backend it took); for K2 and K8-K12 the variant the call
-            took ("mma" on the tensor cores for bfloat16 at the models'
+            with the backend it took); for K2, K6 and K8-K12 the variant the
+            call took ("mma" on the tensor cores for bfloat16 at the models'
             widths, "rows" / "direct" on the CUDA cores otherwise) and, in
             bfloat16 at the main shapes, the CUDA-core variant's time in the
             same run, with edge cases of the tensor-core variants (one and
             two planes, tiles one below, at and one above their size,
             weights staged by taps, segments along x, blocks of channels;
-            one query, one key, partial chunks, every head dim); then K2 and
+            one query, one key, partial chunks, every head dim); K6's dw
+            bit-identical over two calls on the same inputs; then K2 and
             K10 side by side at 1,573 and 3,146 keys
 4. serving  full-width ModelAd (dim 128, depth 3, 4 heads x 32, mlp 512) in
             bfloat16, random weights and BN statistics from a seeded
@@ -58,7 +59,8 @@ before the final line:
             182x218x182 MRI+PET (the last 2 timed): the stem, both stage-2
             convs (K8) and the lane-vector pools run at full resolution, and
             every launch of K8 and K2 is of the "mma" variant (asserted, in
-            phases 9-11 too, for K9-K12 as well); then card float32
+            phases 6, 9 and 11 too, for K6 and K9-K12 as well); then card
+            float32
             against the CPU at 35x37x33 with every body conv on the band
             route
 9. full-resolution train  the train step at batch 6, 182x218x182: 2 warm-up
@@ -143,9 +145,11 @@ RES_TRAIN_KERNELS = ("affine_act_pool", "stem_conv_stats", "stem_dw",
                      "affine_act_pool_bwd", "band_conv", "band_dw",
                      "flash_fwd", "flash_dq", "flash_dkv")
 ATTENTION_CALLS = 6  # per forward: depth 3, one per modality
-# the variant every launch of K2 and K8-K12 must take on the bfloat16 paths
+# the variant every launch of K2, K6 and K8-K12 must take on the bfloat16
+# paths
 MMA = {"attention_fwd": "mma", "band_conv": "mma", "band_dw": "mma",
-       "flash_fwd": "mma", "flash_dq": "mma", "flash_dkv": "mma"}
+       "flash_fwd": "mma", "flash_dq": "mma", "flash_dkv": "mma",
+       "stem_dw": "mma"}
 
 
 def _median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -222,6 +226,9 @@ class Case:
     # args -> (a second library call to time, what it is): K11 and K12's
     # SDPA backward alone, its forward run outside the timed region
     library_part: object = None
+    # a second call on the same inputs must give the same bits (K6: no
+    # float atomics, partials added in a fixed order)
+    repeat: bool = False
 
 
 def _by_sample(plain, batched, summed=()):
@@ -322,12 +329,14 @@ def _kernel_cases(g):
                     _randn(g, 3, 3, 3, 32, scale=0.2).to(dt))
         return make
 
-    def dw_in(b, volume):
+    def dw_in(b, volume, c=32, zero_ab=False):
         def make(dt):
+            a, b2 = _randn(g, c), _randn(g, c, scale=0.1)
+            if zero_ab:
+                a, b2 = torch.zeros_like(a), torch.zeros_like(b2)
             return (_randn(g, b, *volume).to(dt),
-                    _randn(g, b, *volume, 32).to(dt),
-                    _randn(g, b, *volume, 32).to(dt), _randn(g, 32),
-                    _randn(g, 32, scale=0.1))
+                    _randn(g, b, *volume, c).to(dt),
+                    _randn(g, b, *volume, c).to(dt), a, b2)
         return make
 
     def band_in(cin, cout):
@@ -467,6 +476,20 @@ def _kernel_cases(g):
             return outs if len(outs) > 1 else outs[0]
         return run
 
+    def stem_dw_direct(x, y, gy, a, b2):
+        """K6's "direct" variant on the arguments of `stem_dw`, whatever
+        their dtype"""
+        b, X, Y, Z = x.shape
+        c = y.shape[-1]
+        part = torch.empty(stem._dw_rows_fn()(b, X, Y, Z, 0), 27 * c,
+                           device="cuda")
+        dw = torch.empty(3, 3, 3, c, device="cuda")
+        stem.STEM_DW.launch(
+            x.device, x.data_ptr(), y.data_ptr(), gy.data_ptr(), a.data_ptr(),
+            b2.data_ptr(), part.data_ptr(), dw.data_ptr(), b, X, Y, Z, c,
+            _build.DTYPE_CODES[x.dtype], 0, variant="direct")
+        return dw
+
     def dw_direct(x, gy, y=None, a=None, b2=None):
         """K9's "direct" variant on the arguments of `band_dw`, whatever
         their dtype"""
@@ -551,7 +574,7 @@ def _kernel_cases(g):
              stem_in(BATCH, VOLUME), *conv_stats, conv_ops, lib_stem),
         Case("stem_dw", "(8,91,109,91) x (..,32) -> (3,3,3,32)", stem.stem_dw,
              stem.stem_dw_reference, dw_in(BATCH, VOLUME), *dw_tol,
-             stem_dw_ops, lib_stem_dw),
+             stem_dw_ops, lib_stem_dw, stem_dw_direct, repeat=True),
         Case("affine_act_pool_bwd", "max lanes (8,91,109,91,32)",
              *k7("max", True, True), pool_bwd(stage1, True, "max"), *bwd,
              pool_bwd_ops),
@@ -580,7 +603,7 @@ def _kernel_cases(g):
         Case("stem_dw", f"{full_in} x (..,32) -> (3,3,3,32)", stem.stem_dw,
              _by_sample(stem.stem_dw_reference, (0, 1, 2), summed=(0,)),
              dw_in(FULL_BATCH, FULL_VOLUME), *dw_tol, stem_dw_ops,
-             lib_stem_dw),
+             lib_stem_dw, stem_dw_direct, repeat=True),
         Case("affine_act_pool", f"max lanes {full_in[:-1]},32), 5824 lanes",
              pool3d.max_pool3d_2x2_affine_act, _by_sample(max_ref, (0,)),
              pool(full1, True), exact, exact, pool_ops),
@@ -704,6 +727,22 @@ def _kernel_cases(g):
                  attn_bwd(b, h, n, d, m), *flash1, dq_ops, timed=False),
             Case("flash_dkv", shape, fa.flash_dkv, fa.flash_dkv_reference,
                  attn_bwd(b, h, n, d, m), *flash2, dkv_ops, timed=False)]
+    # edge cases of K6 "mma" (float32 takes "direct"): 16 and 64 channels
+    # (one and four pairs of n-tiles), 48, 24 (which the rule sends to
+    # "direct"), batch 1 and 2, one plane, Y and Z off the 16 x 16 tile and
+    # on it, segments along x, a = b2 = 0
+    for b, volume, c, zero_ab in ((1, (5, 17, 18), 16, False),
+                                  (2, (4, 20, 35), 64, False),
+                                  (1, (3, 17, 15), 48, False),
+                                  (1, (3, 9, 17), 24, False),
+                                  (1, (1, 33, 31), 32, False),
+                                  (1, (20, 9, 17), 32, False),
+                                  (2, (3, 16, 16), 32, True)):
+        cases.append(Case(
+            "stem_dw", f"({b},{','.join(map(str, volume))}) x (..,{c})"
+            + (" a = b2 = 0" if zero_ab else ""), stem.stem_dw,
+            stem.stem_dw_reference, dw_in(b, volume, c, zero_ab), *dw_tol,
+            stem_dw_ops, timed=False, repeat=True))
     for cin, cout in ((32, 32), (32, 64)):
         for with_ab in (True, False):
             cases.append(Case(
@@ -792,6 +831,13 @@ def check_kernels(results, only=()):
             took = "".join(f' "{v}"' for v in by_name[name].by_variant)
             outs = outs if isinstance(outs, tuple) else (outs,)
             refs = refs if isinstance(refs, tuple) else (refs,)
+            if case.repeat:
+                again = case.kern(*args)
+                again = again if isinstance(again, tuple) else (again,)
+                if not all(torch.equal(o, p) for o, p in zip(outs, again)):
+                    raise AssertionError(f"{name} {label}: two calls on the "
+                                         "same inputs differ")
+                del again
             for o, r in zip(outs, refs, strict=True):
                 if o.shape != r.shape or o.dtype != r.dtype:
                     raise AssertionError(f"{name} {label}: {o.shape} "
@@ -807,7 +853,8 @@ def check_kernels(results, only=()):
             tol_s = ", ".join(f"{k} rtol={r:.3g} atol={a:.3g}"
                               for k, r, a in dtols)
             line = (f"[kernel] {name}{took} {label} {tag}: max_abs_err="
-                    f"{[float(f'{e:.3g}') for e in errs]} ({tol_s}) {verdict}")
+                    f"{[float(f'{e:.3g}') for e in errs]} ({tol_s}) {verdict}"
+                    + (", two calls bit-identical" if case.repeat else ""))
             if not ok:
                 print(line, flush=True)
                 raise AssertionError(f"{name} {label} {tag} disagrees with "

@@ -1,8 +1,9 @@
-"""The tensor-core variants of K2 (attention forward), K8 (band conv), K9
-(its weight gradient), K10 (flash forward), K11 (flash dq) and K12 (flash
-dk, dv) of the PyTorch/CUDA port, as far as a CPU can hold them: which
-variant a CUDA launch takes for which dtype and shape, and the arithmetic of
-K2, K9, K10, K11 and K12 "mma", emulated in plain PyTorch, against the
+"""The tensor-core variants of K2 (attention forward), K6 (stem weight
+gradient), K8 (band conv), K9 (its weight gradient), K10 (flash forward),
+K11 (flash dq) and K12 (flash dk, dv) of the PyTorch/CUDA port, as far as a
+CPU can hold them: which variant a CUDA launch takes for which dtype and
+shape, and the arithmetic of K2, K6, K9, K10, K11 and K12 "mma", emulated in
+plain PyTorch, against the
 float32 plain versions at the tolerances the card's check uses. The kernels
 themselves run only on a GPU (`chip_smoke.py` phase 3,
 `tests/test_torch_package.py -m cuda`).
@@ -16,7 +17,7 @@ import torch
 
 from transmf_ad_tpu_torch.models import build_model
 from transmf_ad_tpu_torch.nn import blocks
-from transmf_ad_tpu_torch.ops import band_conv, flash_attention as fa
+from transmf_ad_tpu_torch.ops import band_conv, flash_attention as fa, stem
 
 BF16, F32 = torch.bfloat16, torch.float32
 FULL_VOLUME = (182, 218, 182)
@@ -299,6 +300,119 @@ def test_k9_mma_split_order_meets_the_tolerance(with_ab):
     scale = float(ref.abs().max())
     assert err <= 1e-2 * scale
     assert err <= 1e-5 * scale, err / scale
+
+
+K6_TILE = (16, 16)  # (Y, Z) voxels of a K6 "mma" tile
+K6_WARPS = 8  # warp w of a block takes tile rows w and w + 8
+
+
+def _stem_channels(name):
+    """Output channels of the single-channel stem convs of a full-width
+    model: the C of its K6 launches."""
+    return {m.out_channels for m in build_model(name).modules()
+            if isinstance(m, torch.nn.Conv3d) and m.in_channels == 1}
+
+
+@pytest.mark.parametrize("name", ["ad", "transformer_res"])
+def test_stem_dw_variant_full_width_bf16_is_mma(name):
+    assert _stem_channels(name) == {32}
+    assert stem.dw_variant(BF16, 32) == "mma"
+    assert stem.dw_variant(F32, 32) == "direct"
+
+
+@pytest.mark.parametrize("dtype,c,want", [
+    (BF16, 16, "mma"), (BF16, 32, "mma"), (BF16, 48, "mma"),
+    (BF16, 64, "mma"),
+    (BF16, 8, "direct"),      # half an n-tile pair
+    (BF16, 24, "direct"),     # off the multiple of 16
+    (BF16, 128, "direct"),    # more sums than a thread keeps
+    (F32, 32, "direct"), (F32, 64, "direct"),
+])
+def test_stem_dw_variant_by_dtype_and_channels(dtype, c, want):
+    assert stem.dw_variant(dtype, c) == want
+    assert want in stem.DW_VARIANTS
+
+
+def emulate_k6_mma(x, y, gy, a, b2, segs, zero_outside=True):
+    """K6 "mma"'s split of the contraction: columns of 16 x 16 (y, z) voxel
+    tiles, each cut into `segs` segments along x, one row of float32
+    partials a column segment. Warp w of the block sums, per plane of the
+    segment, the products of tile rows w and w + 8: (27 taps, 16 voxels) x
+    (16 voxels, C) of bfloat16 values, exact in float32; the block adds its
+    warps in order, then reduce_rows adds the rows in its fixed order. yhat
+    is assembled with the kernel's rounding and is zero outside the volume;
+    `zero_outside=False` leaves round(a) there, as the tile's padding would
+    hold without the kernel's mask."""
+    B, X, Y, Z = x.shape
+    c = y.shape[-1]
+    ty, tz = K6_TILE
+    nyt, nzt = -(-Y // ty), -(-Z // tz)
+    py, pz = nyt * ty - Y, nzt * tz - Z
+    seg_len = -(-X // segs)
+    pad = torch.nn.functional.pad
+    if zero_outside:
+        yh = pad(stem._yhat(y, gy, a, b2).float(), (0, 0, 0, pz, 0, py))
+    else:
+        yh = stem._yhat(pad(y, (0, 0, 0, pz, 0, py)),
+                        pad(gy, (0, 0, 0, pz, 0, py)), a, b2).float()
+    xp = pad(x.float(), (1, pz + 1, 1, py + 1, 1, 1))
+    part = torch.zeros(B * segs * nyt * nzt, 27, c)
+    for row in range(part.shape[0]):
+        zt, yt = row % nzt, (row // nzt) % nyt
+        seg, b = (row // (nzt * nyt)) % segs, row // (nzt * nyt * segs)
+        y0, z0 = yt * ty, zt * tz
+        warps = torch.zeros(K6_WARPS, 27, c)
+        for xx in range(seg * seg_len, min(X, (seg + 1) * seg_len)):
+            taps = torch.stack([
+                xp[b, xx + t // 9, y0 + (t // 3) % 3:y0 + (t // 3) % 3 + ty,
+                   z0 + t % 3:z0 + t % 3 + tz] for t in range(27)])
+            tile = yh[b, xx, y0:y0 + ty, z0:z0 + tz]  # (rows, voxels, C)
+            prods = torch.einsum("trk,rkc->rtc", taps, tile)
+            for w in range(K6_WARPS):
+                for r in range(w, ty, K6_WARPS):
+                    warps[w] += prods[r]
+        for w in range(K6_WARPS):
+            part[row] += warps[w]
+    return _reduce_rows(part.reshape(part.shape[0], -1)).reshape(3, 3, 3, c)
+
+
+def _stem_dw_inputs(seed, shape=(2, 3, 17, 18), c=32):
+    """bfloat16 x, y, gy and float32 a, b2 on a volume whose Y and Z are
+    not multiples of the 16 x 16 tile."""
+    rng = np.random.default_rng(seed)
+
+    def draw(*s):
+        return torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+
+    return (draw(*shape).to(BF16), draw(*shape, c).to(BF16),
+            draw(*shape, c).to(BF16), draw(c), 0.1 * draw(c))
+
+
+@pytest.mark.parametrize("with_ab", [True, False])
+def test_k6_mma_split_order_meets_the_tolerance(with_ab):
+    """The kernel's order of sums against `stem_dw_reference`: within
+    chip_smoke's bfloat16 tolerance for dw (1e-2 of the largest magnitude)
+    and in fact within 1e-5 of it, since bfloat16 products are exact in
+    float32 and only the order of the float32 sums differs."""
+    x, y, gy, a, b2 = _stem_dw_inputs(23)
+    if not with_ab:
+        a, b2 = torch.zeros_like(a), torch.zeros_like(b2)
+    ref = stem.stem_dw_reference(x, y, gy, a, b2)
+    out = emulate_k6_mma(x, y, gy, a, b2, segs=2)
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    assert err <= 1e-2 * scale
+    assert err <= 1e-5 * scale, err / scale
+
+
+def test_k6_round_a_in_the_padding_misses_the_tolerance():
+    """yhat must be zero outside the volume: round(a) is not, and left in
+    the padding of the tiles it moves dw far past the bfloat16 tolerance
+    (1e-2 of the largest magnitude)."""
+    x, y, gy, a, b2 = _stem_dw_inputs(23)
+    ref = stem.stem_dw_reference(x, y, gy, a, b2)
+    out = emulate_k6_mma(x, y, gy, a, b2, segs=2, zero_outside=False)
+    assert float((out - ref).abs().max()) > 1e-2 * float(ref.abs().max())
 
 
 def test_flash_bwd_variant_full_width_bf16_is_mma():

@@ -611,3 +611,31 @@ def test_k11_k12_tensor_core_variants_on_cuda(cuda):
     flash.FLASH_DQ.reset()
     flash.flash_dq(q, q, q, q, lse, flash.flash_delta(out, q), 0.1)
     assert flash.FLASH_DQ.by_variant == {"rows": 1}
+
+
+@pytest.mark.cuda
+def test_k6_tensor_core_variant_on_cuda(cuda):
+    """K6 "mma" at small shapes against `stem_dw_reference`: Y and Z off
+    and on its 16 x 16 voxel tile, one plane, 16, 32 and 64 channels; the
+    float32 sums to 1e-5 of their largest magnitude (only their order
+    differs: bfloat16 products are exact in float32). bfloat16 takes
+    "mma", float32 "direct", and the count per variant says so; a second
+    call gives the same bits."""
+    def r(*s):
+        return torch.randn(*s, generator=cuda, device="cuda")
+
+    for b, vol, c in ((1, (3, 17, 18), 32), (2, (1, 9, 33), 16),
+                      (1, (4, 16, 16), 64)):
+        x, y, gy = r(b, *vol), r(b, *vol, c), r(b, *vol, c)
+        a, b2 = r(c), 0.1 * r(c)
+        for dtype, want in ((torch.bfloat16, "mma"),
+                            (torch.float32, "direct")):
+            assert stem.dw_variant(dtype, c) == want
+            args = (x.to(dtype), y.to(dtype), gy.to(dtype), a, b2)
+            stem.STEM_DW.reset()
+            dw = stem.stem_dw(*args)
+            torch.cuda.synchronize()
+            assert stem.STEM_DW.by_variant == {want: 1}
+            _match(dw, stem.stem_dw_reference(*args), "s", dtype,
+                   f"stem_dw {want} {b} {vol} C{c}")
+            assert torch.equal(dw, stem.stem_dw(*args))

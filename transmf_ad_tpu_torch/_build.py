@@ -11,7 +11,7 @@ the plain PyTorch versions.
 Each kernel is described by a `Kernel`: its C entry, its argument types, the
 source it lives in, the TPU kernel it replaces, and a plain-integer count of
 its launches, which rises by one per launch and nowhere else. A kernel with
-more than one variant (K2, K8-K12: tensor cores or CUDA cores, by dtype
+more than one variant (K2, K6, K8-K12: tensor cores or CUDA cores, by dtype
 and shape) also counts its launches per variant.
 """
 

@@ -31,18 +31,58 @@
 // lanes to channels at once, and per-lane partials of every block would need
 // ~250 MB of scratch at the training shape.
 //
-// K6 replaces _stem_dw_kernel (pallas_call at stem.py:332):
+// K6 replaces _stem_dw_kernel and _stem_dw_blocked_kernel (pallas_calls at
+// stem.py:332 and :470):
 //   dw[dx, dy, dz, c] = sum over b, x, y, z of
 //       xpad[b, x+dx, y+dy, z+dz] * yhat[b, x, y, z, c],
 //   yhat = gy + round(a[c] + y * b2[c])   (the BN-statistics cotangents)
 // with float32 sums. Bound by reading y and gy (924 MB in bf16 at the stage-1
-// training shape). A block stages the input halo of a brick like K3 and walks
-// kXC x-planes; thread (position group, channel) forms yhat in registers and
-// keeps 27 float32 tap sums for its channel. The block adds its position
-// groups in order and writes one (27, C) partial; reduce_rows adds those in a
-// fixed order. The TPU kernel's banded MXU form (T = lhs^T @ yhat, then the
-// diagonals) is not carried over.
+// training shape, 5.5 GB at full resolution). The TPU kernel's banded MXU
+// form (T = lhs^T @ yhat, then the diagonals) is not carried over. Two
+// variants, chosen by the caller from the dtype and C alone
+// (ops/stem.py::dw_variant) and refused here when they do not fit:
+//
+// K6 "direct" (float32, and bfloat16 with other channel counts): a block
+// stages the input halo of a brick like K3 and walks kXC x-planes; thread
+// (position group, channel) forms yhat in registers and keeps 27 float32 tap
+// sums for its channel. The block adds its position groups in order and
+// writes one (27, C) partial; reduce_rows adds those in a fixed order. One
+// broadcast shared-memory load feeds each FMA, a warp keeps about one voxel
+// of y and gy in flight, and the halo is staged between two barriers: it
+// reaches a fifth of HBM's rate (PERF.md).
+//
+// K6 "mma" (bfloat16, C % 16 == 0, C <= 64): a GEMM on mma.sync.m16n8k16
+// with a huge K, M = 27 taps (padded to 32) x N = C channels x K = voxels.
+// This orientation puts the single input channel on the tap axis, where
+// K9's (M = taps x Cin) would need Cin % 16; yhat, channels-last, is the B
+// operand as K9 reads it. A block of 8 warps owns a column of 16 x 16 (y, z)
+// voxel tiles of one sample and marches along a segment of x (segments from
+// the shape alone, so that the grid holds about 8 blocks an SM). Per plane:
+//   - the y and gy tiles of plane x + 2 (and the raw x rows of plane x + 3)
+//     arrive by 16-byte cp.async into a two-stage ring while plane x's
+//     products run: 32 KB a block in flight at C = 32, and y, gy are read
+//     exactly once;
+//   - the block assembles yhat with the direct kernel's rounding
+//     (__fmul_rn / __fadd_rn, round to bfloat16, add gy, round), zero outside
+//     the volume, where round(a) is not;
+//   - the A operand, [tap][16 voxels], is a row of the zero-padded x halo
+//     starting at z + dz, not 16-byte aligned for dz = 1, 2: each halo plane
+//     is kept as three copies shifted by dz, so that every tap row is an
+//     aligned ldmatrix row. Tap rows are ordered by dx in groups of eight
+//     ((dy, dz) = (0, 0) .. (2, 1)), the three (dx, 2, 2) and five zero rows
+//     last, and the strides (3, 57, 177 units of 16 bytes for a row, a dz
+//     copy, a plane) put the eight rows of every ldmatrix on distinct banks;
+//   - warp w takes tile rows w and w + 8: per row two ldmatrix for A, C / 16
+//     ldmatrix.trans for B (voxel stride C + 8, an odd multiple of 16 bytes),
+//     and C / 4 products, into a 32 x C float32 table in its registers.
+// At the end the block adds its 8 warps' tables in order and writes one
+// (27, C) row of partials; reduce_rows adds the rows in a fixed order: no
+// float atomics, so dw repeats bit for bit. bfloat16 products are exact in
+// float32: only the order of the float32 sums differs from "direct".
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace transmf {
 namespace {
@@ -226,6 +266,284 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// K6 "mma" tiling: a tile of kSY rows of kSZ voxels (one product's depth)
+constexpr int kSY = 16;
+constexpr int kSZ = 16;
+constexpr int kSVox = kSY * kSZ;
+constexpr int kSWarps = 8;
+constexpr int kSThreads = 32 * kSWarps;
+constexpr int kSHalo = kSY + 2;  // rows of a plane's x halo
+// The shifted x copies, in 16-byte units: a row of 16 bfloat16 (2 units)
+// padded to 3, a dz copy of kSHalo rows padded to 57, a plane of three
+// copies to 177; slot 3 stays zero (the padded taps). Strides of 3, 1 and 1
+// modulo 8 keep the eight rows of each ldmatrix on distinct banks.
+constexpr int kRowU = 3;
+constexpr int kCopyU = 57;
+constexpr int kPlaneU = 177;
+constexpr int kRawRow = 32;  // raw x elements staged per halo row
+constexpr int kStemDwBlocks = 8 * 132;  // blocks the segments aim for
+
+// Shared memory of K6 "mma" at C channels: the y / gy ring, yhat, four x
+// copy slots and two raw x slots, in bytes.
+__host__ __device__ constexpr int stem_dw_mma_smem(int C) {
+  return 2 * 2 * kSVox * C * 2 + kSVox * (C + 8) * 2 + 4 * kPlaneU * 16 +
+         2 * kSHalo * kRawRow * 2;
+}
+
+// M row m of the product -> its tap (dx * 9 + dy * 3 + dz), or -1 (zero).
+__device__ __forceinline__ int mma_tap(int m) {
+  const int group = m / 8, j = m % 8;
+  if (group < 3) return group * 9 + j;
+  return j < 3 ? j * 9 + 8 : -1;
+}
+
+// K6 "mma". Block `row` = ((b * segs + seg) * nyt + yt) * nzt + zt marches
+// through planes [seg * seg_len, +seg_len) of column (b, yt, zt) and writes
+// row `row` of `partial`, (rows, 27, C).
+template <int C>
+__global__ void __launch_bounds__(kSThreads, C <= 32 ? 2 : 1)
+    stem_dw_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                       const __nv_bfloat16* __restrict__ y,
+                       const __nv_bfloat16* __restrict__ gy,
+                       const float* __restrict__ a,
+                       const float* __restrict__ b2,
+                       float* __restrict__ partial, int X, int Y, int Z,
+                       int nyt, int nzt, int segs, int seg_len) {
+  using bf16 = __nv_bfloat16;
+  constexpr int YS = C + 8;      // voxel stride of yhat: odd x 16 bytes
+  constexpr int kP = C / 8;      // 16-byte pieces of a voxel; n-tiles
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* stage = reinterpret_cast<bf16*>(smem_raw);  // [2][y, gy][kSVox][C]
+  bf16* yhat = stage + 2 * 2 * kSVox * C;           // [kSVox][YS]
+  bf16* copies = yhat + kSVox * YS;                 // [4][kPlaneU x 8]
+  bf16* raw = copies + 4 * kPlaneU * 8;             // [2][kSHalo][kRawRow]
+  __shared__ float a_s[C], b_s[C];
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int64_t row = blockIdx.x;
+  const int z0 = static_cast<int>(row % nzt) * kSZ;
+  const int y0 = static_cast<int>((row / nzt) % nyt) * kSY;
+  const int64_t sb = row / (static_cast<int64_t>(nzt) * nyt);
+  const int xs = static_cast<int>(sb % segs) * seg_len;
+  const int xe = min(X, xs + seg_len);
+  const int64_t b = sb / segs;
+
+  for (int i = tid; i < C; i += kSThreads) {
+    a_s[i] = a[i];
+    b_s[i] = b2[i];
+  }
+  for (int i = tid; i < kPlaneU; i += kSThreads) {  // slot 3: zero rows
+    reinterpret_cast<uint4*>(copies + 3 * kPlaneU * 8)[i] =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+
+  // x row py of plane p (inside the volume): its first element, and the
+  // 16-byte aligned address its staged raw chunks start from, as an element
+  // offset from x (possibly negative: x need only be 2-byte aligned)
+  auto raw_start = [&](int p, int py, int64_t& rowbase) {
+    rowbase = ((b * X + p) * Y + py) * static_cast<int64_t>(Z);
+    const uintptr_t first = reinterpret_cast<uintptr_t>(
+        x + rowbase + (z0 > 0 ? z0 - 1 : 0));
+    return static_cast<int64_t>(
+               static_cast<intptr_t>((first & ~uintptr_t{15}) -
+                                     reinterpret_cast<uintptr_t>(x))) /
+           2;
+  };
+  // the x halo rows of plane p (-1 .. X) that lie in the volume, as four
+  // 16-byte chunks a row, to raw slot p & 1; chunks outside the row's
+  // z0 - 1 .. z0 + 16 are zero-filled and read nothing
+  auto fetch_raw = [&](int p) {
+    if (p < 0 || p >= X) return;
+    bf16* slot = raw + (p & 1) * kSHalo * kRawRow;
+    for (int i = tid; i < kSHalo * 4; i += kSThreads) {
+      const int hr = i / 4, ch = i % 4, py = y0 - 1 + hr;
+      if (py < 0 || py >= Y) continue;
+      int64_t rowbase;
+      const int64_t start = raw_start(p, py, rowbase) + ch * 8;
+      const int64_t hi = rowbase + min(z0 + kSZ + 1, Z);
+      const int64_t lo = rowbase + (z0 > 0 ? z0 - 1 : 0);
+      const bool real = start < hi && start + 8 > lo;
+      cp_async16(slot + hr * kRawRow + ch * 8, real ? x + start : x, real);
+    }
+  };
+  // the three copies of plane p's halo, shifted by dz, to copy slot
+  // (p + 1) % 3: copy dz, row hr, element k = xpad[p, y0 + hr, z0 + dz + k]
+  auto build = [&](int p) {
+    bf16* slot = copies + ((p + 1) % 3) * kPlaneU * 8;
+    const bf16* src = raw + (p & 1) * kSHalo * kRawRow;
+    const bool plane = p >= 0 && p < X;
+    for (int i = tid; i < kSHalo * 3 * (kSZ / 2); i += kSThreads) {
+      const int hr = i / (3 * (kSZ / 2)), dz = (i / (kSZ / 2)) % 3;
+      const int k = 2 * (i % (kSZ / 2)), py = y0 - 1 + hr;
+      bf16 v[2] = {__float2bfloat16_rn(0.f), __float2bfloat16_rn(0.f)};
+      if (plane && py >= 0 && py < Y) {
+        int64_t rowbase;
+        const int64_t start = raw_start(p, py, rowbase);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int z = z0 - 1 + dz + k + e;
+          if (z >= 0 && z < Z) {
+            v[e] = src[hr * kRawRow + static_cast<int>(rowbase + z - start)];
+          }
+        }
+      }
+      bf16* dst = slot + (dz * kCopyU + hr * kRowU) * 8 + k;
+      dst[0] = v[0];
+      dst[1] = v[1];
+    }
+  };
+  // the y and gy tiles of plane p to stage s; zeros outside the volume
+  auto fetch_tile = [&](int p, int s) {
+    bf16* sy = stage + s * 2 * kSVox * C;
+    bf16* sg = sy + kSVox * C;
+    for (int i = tid; i < kSVox * kP; i += kSThreads) {
+      const int vox = i / kP, c = i % kP;
+      const int py = y0 + vox / kSZ, pz = z0 + vox % kSZ;
+      const bool real = py < Y && pz < Z;
+      const int64_t off =
+          real ? (((b * X + p) * Y + py) * Z + pz) * C + c * 8 : 0;
+      cp_async16(sy + vox * C + c * 8, y + off, real);
+      cp_async16(sg + vox * C + c * 8, gy + off, real);
+    }
+  };
+  // yhat = gy + round(a + y * b2), rounded in bfloat16 as on the TPU; zero
+  // outside the volume, where round(a) is not
+  auto assemble = [&](int s) {
+    const bf16* sy = stage + s * 2 * kSVox * C;
+    const bf16* sg = sy + kSVox * C;
+    for (int i = tid; i < kSVox * kP; i += kSThreads) {
+      const int vox = i / kP, c = i % kP;
+      const bool real = y0 + vox / kSZ < Y && z0 + vox % kSZ < Z;
+      const uint4 rv = *reinterpret_cast<const uint4*>(sy + vox * C + c * 8);
+      uint4 gv = *reinterpret_cast<const uint4*>(sg + vox * C + c * 8);
+      const bf16* re = reinterpret_cast<const bf16*>(&rv);
+      bf16* ge = reinterpret_cast<bf16*>(&gv);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float stat = __bfloat162float(__float2bfloat16_rn(__fadd_rn(
+            a_s[c * 8 + j],
+            __fmul_rn(__bfloat162float(re[j]), b_s[c * 8 + j]))));
+        ge[j] = __float2bfloat16_rn(__bfloat162float(ge[j]) + stat);
+      }
+      *reinterpret_cast<uint4*>(yhat + vox * YS + c * 8) =
+          real ? gv : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+
+  // ldmatrix rows of this lane. A (m-tile mt): M row m = 16 mt + lane % 16
+  // at voxel offset 8 (lane / 16), i.e. tap (dx, dy, dz) of the copy of
+  // plane x + dx - 1 shifted by dz, row dy (+ the tile row); the zero rows
+  // at their own banks in slot 3. B: yhat voxel b_k of a tile row, 8
+  // channels further for the upper lanes.
+  int a_dx[2], a_off[2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int m = 16 * mt + lane % 16, khalf = lane / 16;
+    const int tap = mma_tap(m);
+    if (tap >= 0) {
+      const int dy = (tap / 3) % 3, dz = tap % 3;
+      a_dx[mt] = tap / 9;
+      a_off[mt] = dz * kCopyU + dy * kRowU + khalf;
+    } else {  // banks 3 .. 7 past the real rows of group 3
+      a_dx[mt] = -1;
+      a_off[mt] = 2 * kCopyU + 2 * kRowU + (m % 8 - 3) + khalf;
+    }
+  }
+  const int b_k = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const bf16* b_lane = yhat + b_k * YS + (lane >> 4) * 8;
+
+  float acc[2][kP][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < kP; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+    }
+  }
+
+  // planes xs - 1 and xs built; tiles xs and xs + 1 (with the raw rows of
+  // planes xs + 1 and xs + 2) in flight, one commit group a tile
+  fetch_raw(xs - 1);
+  fetch_raw(xs);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  build(xs - 1);
+  build(xs);
+  __syncthreads();  // raw slots free
+  fetch_tile(xs, 0);
+  fetch_raw(xs + 1);
+  cp_async_commit();
+  if (xs + 1 < xe) {
+    fetch_tile(xs + 1, 1);
+    fetch_raw(xs + 2);
+  }
+  cp_async_commit();
+  for (int xx = xs; xx < xe; ++xx) {
+    const int s = (xx - xs) & 1;
+    cp_async_wait<1>();  // tile xx and plane xx + 1's raw rows have landed
+    __syncthreads();     // ... for every thread; plane xx - 1's products done
+    assemble(s);
+    build(xx + 1);
+    __syncthreads();
+    if (xx + 2 < xe) {  // stage s and raw slot (xx + 1) & 1 are free
+      fetch_tile(xx + 2, s);
+      fetch_raw(xx + 3);
+    }
+    cp_async_commit();
+    const bf16* pa[2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int slot = a_dx[mt] < 0 ? 3 : (xx + a_dx[mt]) % 3;
+      pa[mt] = copies + (slot * kPlaneU + a_off[mt]) * 8;
+    }
+#pragma unroll
+    for (int i = 0; i < kSY / kSWarps; ++i) {
+      const int r = warp + i * kSWarps;
+      unsigned af[2][4];
+      ldmatrix_x4(af[0], pa[0] + r * kRowU * 8);
+      ldmatrix_x4(af[1], pa[1] + r * kRowU * 8);
+#pragma unroll
+      for (int np = 0; np < kP / 2; ++np) {
+        unsigned bf[4];
+        ldmatrix_x4_trans(bf, b_lane + r * kSZ * YS + np * 16);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_bf16(acc[mt][2 * np], af[mt], bf[0], bf[1]);
+          mma_bf16(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the warps' 32 x C tables, then their sum in warp order, once a tap
+  float* table = reinterpret_cast<float*>(smem_raw);  // [kSWarps][32][C]
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < kP; ++nt) {
+      float* p = table + (warp * 32 + 16 * mt + g) * C + nt * 8 + 2 * t;
+      *reinterpret_cast<float2*>(p) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      *reinterpret_cast<float2*>(p + 8 * C) =
+          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+  }
+  __syncthreads();
+  float* out = partial + row * 27 * C;
+  for (int i = tid; i < 32 * C; i += kSThreads) {
+    const int tap = mma_tap(i / C);
+    if (tap < 0) continue;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSWarps; ++w) sum += table[w * 32 * C + i];
+    out[tap * C + i % C] = sum;
+  }
+}
+
 }  // namespace
 }  // namespace transmf
 
@@ -241,6 +559,45 @@ dim3 brick_grid(int B, int X, int Y, int Z, int planes) {
   return dim3(static_cast<unsigned>(ceil_div(Z, kTZ)),
               static_cast<unsigned>(ceil_div(Y, kTY)),
               static_cast<unsigned>(B * ceil_div(X, planes)));
+}
+
+// How K6 "mma" cuts a call: columns of 16 x 16 voxel tiles, split along x
+// until the grid has kStemDwBlocks blocks, as long as a segment keeps 8
+// planes; `rows`: its blocks, the rows of the partials.
+struct StemDwPlan {
+  int nyt, nzt, segs, seg_len;
+  int64_t rows;
+};
+
+StemDwPlan stem_dw_plan(int B, int X, int Y, int Z) {
+  StemDwPlan p{};
+  p.nyt = static_cast<int>(ceil_div(Y, kSY));
+  p.nzt = static_cast<int>(ceil_div(Z, kSZ));
+  const int64_t columns = static_cast<int64_t>(B) * p.nyt * p.nzt;
+  const int64_t want = ceil_div(kStemDwBlocks, columns);
+  const int64_t most = ceil_div(X, 8);
+  p.seg_len = static_cast<int>(ceil_div(X, want < most ? want : most));
+  p.segs = static_cast<int>(ceil_div(X, p.seg_len));
+  p.rows = columns * p.segs;
+  return p;
+}
+
+template <int C>
+int launch_stem_dw_mma(const void* x, const void* y, const void* gy,
+                       const void* a, const void* b2, void* partial, int X,
+                       int Y, int Z, const StemDwPlan& p, cudaStream_t st) {
+  using T = __nv_bfloat16;
+  auto kernel = stem_dw_mma_kernel<C>;
+  const size_t smem = stem_dw_mma_smem(C);
+  // the limit counts the kernel's static a and b2 as well
+  const cudaError_t status = allow_smem(kernel, smem + sizeof(float) * 2 * C);
+  if (status != cudaSuccess) return static_cast<int>(status);
+  kernel<<<static_cast<unsigned>(p.rows), kSThreads, smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y),
+      static_cast<const T*>(gy), static_cast<const float*>(a),
+      static_cast<const float*>(b2), static_cast<float*>(partial), X, Y, Z,
+      p.nyt, p.nzt, p.segs, p.seg_len);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -264,11 +621,19 @@ extern "C" int transmf_stem_conv(const void* x, const void* w, void* out,
   });
 }
 
-// Blocks of K5 and K6 for a volume, i.e. the rows of their partials.
+// Blocks of K5 and K6 "direct" for a volume, i.e. the rows of their
+// partials.
 extern "C" int64_t transmf_stem_blocks(int B, int X, int Y, int Z) {
   using namespace transmf;
   const dim3 g = brick_grid(B, X, Y, Z, kXC);
   return static_cast<int64_t>(g.x) * g.y * g.z;
+}
+
+// Rows of K6's float32 partials for a call. variant: 0 "direct", 1 "mma".
+extern "C" int64_t transmf_stem_dw_rows(int B, int X, int Y, int Z,
+                                        int variant) {
+  if (variant == 1) return transmf::stem_dw_plan(B, X, Y, Z).rows;
+  return transmf_stem_blocks(B, X, Y, Z);
 }
 
 // K5. As transmf_stem_conv, plus stats: float32 (2, C) [sum, sum of squares]
@@ -297,18 +662,49 @@ extern "C" int transmf_stem_conv_stats(const void* x, const void* w, void* out,
 
 // K6. x: (B, X, Y, Z); y, gy: (B, X, Y, Z, C) in x's type; a, b2: float32
 // (C,); dw: float32 (3, 3, 3, C). partial: float32 scratch of
-// 27 * C * transmf_stem_blocks(...).
+// 27 * C * transmf_stem_dw_rows(..., variant). variant 1 ("mma") needs
+// bfloat16, C in 16, 32, 48, 64 and 16-byte aligned y and gy; variant 0
+// ("direct") takes everything.
 extern "C" int transmf_stem_dw(const void* x, const void* y, const void* gy,
                                const void* a, const void* b2, void* partial,
                                void* dw, int B, int X, int Y, int Z, int C,
-                               int dtype, void* stream) {
+                               int dtype, int variant, void* stream) {
   using namespace transmf;
-  if (bad_shape(B, X, Y, Z, C, kXC)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(B, X, Y, Z, C, kXC) || variant < 0 || variant > 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (variant == 1) {
+    const auto misaligned = [](const void* ptr) {
+      return reinterpret_cast<uintptr_t>(ptr) % 16 != 0;
+    };
+    if (dtype != kBFloat16 || C % 16 != 0 || C > 64 || misaligned(y) ||
+        misaligned(gy)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const StemDwPlan p = stem_dw_plan(B, X, Y, Z);
+    if (p.rows > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+    const auto run = [&](auto c) {
+      return launch_stem_dw_mma<decltype(c)::value>(x, y, gy, a, b2, partial,
+                                                    X, Y, Z, p, st);
+    };
+    int status = static_cast<int>(cudaErrorInvalidValue);
+    switch (C) {
+      case 16: status = run(std::integral_constant<int, 16>{}); break;
+      case 32: status = run(std::integral_constant<int, 32>{}); break;
+      case 48: status = run(std::integral_constant<int, 48>{}); break;
+      case 64: status = run(std::integral_constant<int, 64>{}); break;
+      default: break;
+    }
+    if (status != cudaSuccess) return status;
+    reduce_rows(static_cast<const float*>(partial), static_cast<float*>(dw),
+                p.rows, 27 * C, 1, st);
+    return static_cast<int>(cudaGetLastError());
+  }
   const dim3 grid = brick_grid(B, X, Y, Z, kXC);
   const int64_t nblk = static_cast<int64_t>(grid.x) * grid.y * grid.z;
   const int P = kThreads / C;
   const size_t smem = sizeof(float) * static_cast<size_t>(P) * 27 * C;
-  const auto st = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, [&](auto tag) {
     using T = decltype(tag);
     if (allow_smem(stem_dw_kernel<T>, smem) != cudaSuccess) return;

@@ -38,12 +38,15 @@ STEM_CONV_STATS = Kernel(
     source="transmf_ad_tpu_torch/csrc/stem_conv.cu",
     replaces="transmf_ad_tpu/ops/stem.py:195")
 
+# also replaces _stem_dw_blocked_kernel (:470)
 STEM_DW = Kernel(
     name="stem_dw", entry="transmf_stem_dw",
     argtypes=(PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT,
-              INT),
+              INT, INT),
     source="transmf_ad_tpu_torch/csrc/stem_conv.cu",
     replaces="transmf_ad_tpu/ops/stem.py:332")
+DW_VARIANTS = ("direct", "mma")  # K6's, by their code in the C interface
+DW_MMA_MAX_CHANNELS = 64  # 64 float32 sums a thread; the ring fits in 227 KB
 
 MAX_CHANNELS = 256
 
@@ -108,6 +111,25 @@ def _blocks_fn():
     return fn
 
 
+@functools.cache
+def _dw_rows_fn():
+    fn = library().transmf_stem_dw_rows
+    fn.argtypes = [INT] * 5
+    fn.restype = ctypes.c_int64
+    return fn
+
+
+def dw_variant(dtype: torch.dtype, c: int) -> str:
+    """The K6 variant a CUDA launch takes, from the dtype and the channel
+    count alone: "mma" (tensor cores) for bfloat16 with C a multiple of 16
+    (the product's n8 tiles, loaded two at a time) up to 64 (its float32
+    sums stay in a thread's registers), else "direct" (CUDA cores)."""
+    if (dtype == torch.bfloat16 and c % 16 == 0
+            and c <= DW_MMA_MAX_CHANNELS):
+        return "mma"
+    return "direct"
+
+
 def _stem_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return _conv_reference(x, w)
@@ -145,7 +167,8 @@ def stem_dw(x, y, gy, a, b2) -> torch.Tensor:
     """Stem weight gradient: float32 (3, 3, 3, C) from the input x
     (B, X, Y, Z), the output y and its gradient gy (B, X, Y, Z, C), and the
     float32 (C,) cotangents a (of the sums) and b2 (twice that of the sums
-    of squares). Kernel K6 on CUDA tensors; the plain version on CPU."""
+    of squares). Kernel K6 on CUDA tensors, in the variant `dw_variant`
+    names; the plain version on CPU."""
     if x.device.type == "cpu":
         return stem_dw_reference(x, y, gy, a, b2)
     name = "stem_dw"
@@ -162,12 +185,14 @@ def stem_dw(x, y, gy, a, b2) -> torch.Tensor:
                 or not v.is_contiguous() or tuple(v.shape) != (c,)):
             raise ValueError(f"{name}: a, b2 must be contiguous float32 "
                              f"({c},) on {x.device}")
-    partial = torch.empty(_blocks_fn()(b, X, Y, Z), 27 * c,
+    which = dw_variant(y.dtype, c)
+    code = DW_VARIANTS.index(which)
+    partial = torch.empty(_dw_rows_fn()(b, X, Y, Z, code), 27 * c,
                           dtype=torch.float32, device=x.device)
     dw = torch.empty(3, 3, 3, c, dtype=torch.float32, device=x.device)
     STEM_DW.launch(x.device, x.data_ptr(), y.data_ptr(), gy.data_ptr(),
                    a.data_ptr(), b2.data_ptr(), partial.data_ptr(),
-                   dw.data_ptr(), b, X, Y, Z, c, dtype)
+                   dw.data_ptr(), b, X, Y, Z, c, dtype, code, variant=which)
     return dw
 
 
