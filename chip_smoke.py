@@ -25,21 +25,23 @@ before the final line:
             where one PyTorch call computes the same function, that call's
             time (a yardstick: nothing in the port calls it for that; for
             K11 and K12 SDPA's forward and backward, and its backward alone
-            with the backend it took); for K2, K6 and K8-K12 the variant the
-            call took ("mma" on the tensor cores for bfloat16 at the models'
-            widths, "rows" / "direct" on the CUDA cores otherwise) and, in
+            with the backend it took); for K2, K3, K5, K6 and K8-K12 the
+            variant the call took ("mma" on the tensor cores for bfloat16 at
+            the models' widths, "rows" / "direct" on the CUDA cores
+            otherwise) and, in
             bfloat16 at the main shapes, the CUDA-core variant's time in the
             same run, with edge cases of the tensor-core variants (one and
             two planes, tiles one below, at and one above their size,
             weights staged by taps, segments along x, blocks of channels;
-            one query, one key, partial chunks, every head dim); K6's dw
-            bit-identical over two calls on the same inputs; then K2 and
+            one query, one key, partial chunks, every head dim); K5's y and
+            sums and K6's dw bit-identical over two calls on the same
+            inputs; then K2 and
             K10 side by side at 1,573 and 3,146 keys
 4. serving  full-width ModelAd (dim 128, depth 3, 4 heads x 32, mlp 512) in
             bfloat16, random weights and BN statistics from a seeded
             torch.Generator, answers 6 batch-8 requests of 91x109x91
             MRI+PET (the last 3 timed); every serving kernel's launch count
-            must rise, and every K2 launch is of the "mma" variant
+            must rise, and every K2 and K3 launch is of the "mma" variant
 5. check    the same weights at batch 2 in float32 (TF32 off) on the card and
             through the plain path on the CPU: logits, d_mri and d_pet agree
 6. train    the adversarial train step of full-width ModelAd at batch 8,
@@ -58,8 +60,9 @@ before the final line:
 8. full-resolution serving  the same model answers 3 batch-6 requests of
             182x218x182 MRI+PET (the last 2 timed): the stem, both stage-2
             convs (K8) and the lane-vector pools run at full resolution, and
-            every launch of K8 and K2 is of the "mma" variant (asserted, in
-            phases 6, 9 and 11 too, for K6 and K9-K12 as well); then card
+            every launch of K8, K2 and K3 is of the "mma" variant (asserted,
+            in phases 6, 9 and 11 too, for K5, K6 and K9-K12 as well); then
+            card
             float32
             against the CPU at 35x37x33 with every body conv on the band
             route
@@ -145,11 +148,11 @@ RES_TRAIN_KERNELS = ("affine_act_pool", "stem_conv_stats", "stem_dw",
                      "affine_act_pool_bwd", "band_conv", "band_dw",
                      "flash_fwd", "flash_dq", "flash_dkv")
 ATTENTION_CALLS = 6  # per forward: depth 3, one per modality
-# the variant every launch of K2, K6 and K8-K12 must take on the bfloat16
-# paths
+# the variant every launch of K2, K3, K5, K6 and K8-K12 must take on the
+# bfloat16 paths
 MMA = {"attention_fwd": "mma", "band_conv": "mma", "band_dw": "mma",
        "flash_fwd": "mma", "flash_dq": "mma", "flash_dkv": "mma",
-       "stem_dw": "mma"}
+       "stem_conv": "mma", "stem_conv_stats": "mma", "stem_dw": "mma"}
 
 
 def _median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -226,7 +229,7 @@ class Case:
     # args -> (a second library call to time, what it is): K11 and K12's
     # SDPA backward alone, its forward run outside the timed region
     library_part: object = None
-    # a second call on the same inputs must give the same bits (K6: no
+    # a second call on the same inputs must give the same bits (K5, K6: no
     # float atomics, partials added in a fixed order)
     repeat: bool = False
 
@@ -323,10 +326,10 @@ def _kernel_cases(g):
                                                         mode, round_gi)
         return kern, plain
 
-    def stem_in(b, volume):
+    def stem_in(b, volume, c=32):
         def make(dt):
             return (_randn(g, b, *volume).to(dt),
-                    _randn(g, 3, 3, 3, 32, scale=0.2).to(dt))
+                    _randn(g, 3, 3, 3, c, scale=0.2).to(dt))
         return make
 
     def dw_in(b, volume, c=32, zero_ab=False):
@@ -476,6 +479,29 @@ def _kernel_cases(g):
             return outs if len(outs) > 1 else outs[0]
         return run
 
+    def stem_direct(stats):
+        """K3's (with `stats` K5's) "direct" variant on the arguments of
+        `stem_conv`, whatever their dtype"""
+        def run(x, w):
+            b, X, Y, Z = x.shape
+            c = w.shape[-1]
+            out = torch.empty(b, X, Y, Z, c, dtype=x.dtype, device="cuda")
+            code = _build.DTYPE_CODES[x.dtype]
+            if not stats:
+                stem.STEM_CONV.launch(x.device, x.data_ptr(), w.data_ptr(),
+                                      out.data_ptr(), b, X, Y, Z, c, code, 0,
+                                      variant="direct")
+                return out
+            part = torch.empty(2, stem._blocks_fn()(b, X, Y, Z, 0), c,
+                               device="cuda")
+            st = torch.empty(2, c, device="cuda")
+            stem.STEM_CONV_STATS.launch(
+                x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                part.data_ptr(), st.data_ptr(), b, X, Y, Z, c, code, 0,
+                variant="direct")
+            return out, st
+        return run
+
     def stem_dw_direct(x, y, gy, a, b2):
         """K6's "direct" variant on the arguments of `stem_dw`, whatever
         their dtype"""
@@ -556,7 +582,7 @@ def _kernel_cases(g):
              attn_rows),
         Case("stem_conv", "(8,91,109,91)->C32", stem.stem_conv,
              stem._conv_reference, stem_in(BATCH, VOLUME), *conv, conv_ops,
-             lib_stem),
+             lib_stem, stem_direct(False)),
         Case("affine_act_pool", "max lanes (8,91,109,91,32)",
              pool3d.max_pool3d_2x2_affine_act, max_ref, pool(stage1, True),
              exact, exact, pool_ops),
@@ -571,7 +597,8 @@ def _kernel_cases(g):
              [_elem(1e-6, 1e-6)], [_elem(BF16_RTOL, 0.0)], pool_ops),
         Case("stem_conv_stats", "(8,91,109,91)->C32 + (2,32) sums",
              stem.stem_conv_stats, stem._stem_stats_reference,
-             stem_in(BATCH, VOLUME), *conv_stats, conv_ops, lib_stem),
+             stem_in(BATCH, VOLUME), *conv_stats, conv_ops, lib_stem,
+             stem_direct(True), repeat=True),
         Case("stem_dw", "(8,91,109,91) x (..,32) -> (3,3,3,32)", stem.stem_dw,
              stem.stem_dw_reference, dw_in(BATCH, VOLUME), *dw_tol,
              stem_dw_ops, lib_stem_dw, stem_dw_direct, repeat=True),
@@ -594,12 +621,13 @@ def _kernel_cases(g):
         # --- the full-resolution path -------------------------------------
         Case("stem_conv", f"{full_in}->C32", stem.stem_conv,
              _by_sample(stem._conv_reference, (0,)),
-             stem_in(FULL_BATCH, FULL_VOLUME), *conv, conv_ops, lib_stem),
+             stem_in(FULL_BATCH, FULL_VOLUME), *conv, conv_ops, lib_stem,
+             stem_direct(False)),
         Case("stem_conv_stats", f"{full_in}->C32 + (2,32) sums",
              stem.stem_conv_stats,
              _by_sample(stem._stem_stats_reference, (0,), summed=(1,)),
              stem_in(FULL_BATCH, FULL_VOLUME), *conv_stats, conv_ops,
-             lib_stem),
+             lib_stem, stem_direct(True), repeat=True),
         Case("stem_dw", f"{full_in} x (..,32) -> (3,3,3,32)", stem.stem_dw,
              _by_sample(stem.stem_dw_reference, (0, 1, 2), summed=(0,)),
              dw_in(FULL_BATCH, FULL_VOLUME), *dw_tol, stem_dw_ops,
@@ -743,6 +771,26 @@ def _kernel_cases(g):
             + (" a = b2 = 0" if zero_ab else ""), stem.stem_dw,
             stem.stem_dw_reference, dw_in(b, volume, c, zero_ab), *dw_tol,
             stem_dw_ops, timed=False, repeat=True))
+    # edge cases of K3 and K5 "mma" (float32 takes "direct"): 16, 48 and 64
+    # channels (the quads' 8-byte pieces, and two groups of 16-byte ones),
+    # 24 (which the rule sends to "direct"), batch 1 and 2, one plane, Y one
+    # below, at and one above the tile's 32 rows, Z one below, at and one
+    # above its 16 voxels (odd Z: rows of x not 16-byte aligned), several
+    # tiles along y and z, segments along x
+    for b, volume, c in ((1, (1, 15, 15), 32), (2, (3, 16, 16), 32),
+                         (1, (3, 17, 17), 32), (1, (5, 17, 18), 16),
+                         (1, (3, 17, 15), 48), (2, (4, 20, 35), 64),
+                         (1, (3, 9, 17), 24), (1, (20, 9, 17), 32),
+                         (1, (3, 31, 16), 32), (1, (2, 32, 33), 64),
+                         (2, (5, 33, 31), 32)):
+        shape = f"({b},{','.join(map(str, volume))})->C{c}"
+        cases += [
+            Case("stem_conv", shape, stem.stem_conv, stem._conv_reference,
+                 stem_in(b, volume, c), *conv, conv_ops, timed=False),
+            Case("stem_conv_stats", shape + f" + (2,{c}) sums",
+                 stem.stem_conv_stats, stem._stem_stats_reference,
+                 stem_in(b, volume, c), *conv_stats, conv_ops, timed=False,
+                 repeat=True)]
     for cin, cout in ((32, 32), (32, 64)):
         for with_ab in (True, False):
             cases.append(Case(
@@ -1293,7 +1341,7 @@ def main(argv=None) -> int:
     print(f"[build] {lib.name} in {laps[-1][1] - laps[0][1]:.1f} s",
           flush=True)
     for line in lib.with_suffix(".log").read_text().splitlines():
-        if "Compiling entry" in line or "registers" in line:
+        if any(k in line for k in ("Compiling entry", "registers", "spill")):
             print(f"[build] {line.split(':', 1)[-1].strip()}", flush=True)
 
     results: dict = {}

@@ -1,11 +1,11 @@
-"""The tensor-core variants of K2 (attention forward), K6 (stem weight
-gradient), K8 (band conv), K9 (its weight gradient), K10 (flash forward),
-K11 (flash dq) and K12 (flash dk, dv) of the PyTorch/CUDA port, as far as a
-CPU can hold them: which variant a CUDA launch takes for which dtype and
-shape, and the arithmetic of K2, K6, K9, K10, K11 and K12 "mma", emulated in
-plain PyTorch, against the
-float32 plain versions at the tolerances the card's check uses. The kernels
-themselves run only on a GPU (`chip_smoke.py` phase 3,
+"""The tensor-core variants of K2 (attention forward), K3 / K5 (stem conv,
+with its BatchNorm sums), K6 (stem weight gradient), K8 (band conv), K9
+(its weight gradient), K10 (flash forward), K11 (flash dq) and K12 (flash
+dk, dv) of the PyTorch/CUDA port, as far as a CPU can hold them: which
+variant a CUDA launch takes for which dtype and shape, and the arithmetic of
+K2, K5, K6, K9, K10, K11 and K12 "mma", emulated in plain PyTorch, against
+the float32 plain versions at the tolerances the card's check uses. The
+kernels themselves run only on a GPU (`chip_smoke.py` phase 3,
 `tests/test_torch_package.py -m cuda`).
 """
 
@@ -302,8 +302,18 @@ def test_k9_mma_split_order_meets_the_tolerance(with_ab):
     assert err <= 1e-5 * scale, err / scale
 
 
-K6_TILE = (16, 16)  # (Y, Z) voxels of a K6 "mma" tile
+K6_TILE = (16, 16)  # (Y, Z) voxels of a K6 (and K3 / K5) "mma" tile
 K6_WARPS = 8  # warp w of a block takes tile rows w and w + 8
+
+
+def _mma_tap(m):
+    """stem_conv.cu's mma_tap: row m of the tap axis -> its tap, or -1 (a
+    zero row): dx in groups of eight (dy, dz), the three (dx, 2, 2) and
+    five zero rows last."""
+    group, j = divmod(m, 8)
+    if group < 3:
+        return 9 * group + j
+    return 9 * j + 8 if j < 3 else -1
 
 
 def _stem_channels(name):
@@ -413,6 +423,147 @@ def test_k6_round_a_in_the_padding_misses_the_tolerance():
     ref = stem.stem_dw_reference(x, y, gy, a, b2)
     out = emulate_k6_mma(x, y, gy, a, b2, segs=2, zero_outside=False)
     assert float((out - ref).abs().max()) > 1e-2 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("name", ["ad", "transformer_res"])
+def test_stem_conv_variant_full_width_bf16_is_mma(name):
+    """Every full-width model's stem (C = 32) takes K3 / K5 "mma" in
+    bfloat16 and "direct" in float32."""
+    for c in _stem_channels(name):
+        assert stem.conv_variant(BF16, c) == "mma"
+        assert stem.conv_variant(F32, c) == "direct"
+
+
+@pytest.mark.parametrize("dtype,c,want", [
+    (BF16, 16, "mma"), (BF16, 32, "mma"), (BF16, 48, "mma"),
+    (BF16, 64, "mma"),
+    (BF16, 24, "direct"),     # off the multiple of 16
+    (BF16, 72, "direct"),     # more than a thread's registers hold
+    (F32, 16, "direct"), (F32, 24, "direct"), (F32, 32, "direct"),
+    (F32, 48, "direct"), (F32, 64, "direct"), (F32, 72, "direct"),
+])
+def test_stem_conv_variant_by_dtype_and_channels(dtype, c, want):
+    assert stem.conv_variant(dtype, c) == want
+    assert want in stem.CONV_VARIANTS
+
+
+K5_TAPS = [_mma_tap(m) for m in range(32)]  # the product's K, padded
+K5_TILE = (32, 16)  # (Y, Z) voxels of a K3 / K5 "mma" tile
+
+
+def emulate_k5_mma(x, w, segs, tail_in_sums=False):
+    """K3 / K5 "mma" in plain PyTorch: (y, (2, C) sums). Per tile row, 16
+    z voxels x 32 taps in mma_tap order (rows 27-31 zero in A and B) times
+    32 taps x C, bfloat16 products exact in float32 and float32 sums; y is
+    that float32 value rounded once. The sums follow the kernel: columns of
+    32 x 16 (y, z) tiles cut into `segs` segments along x; thread (warp w,
+    lane group g, channel) adds, plane by plane, tile rows w, w + 8, w + 16
+    and w + 24, voxels g and g + 8, of the voxels inside the volume (sum,
+    and the square by a fused multiply-add, emulated in float64 and rounded
+    once);
+    the eight g add in a butterfly, the warps in order, then reduce_rows
+    adds the column segments in its fixed order. `tail_in_sums` also adds
+    the tiles' voxels past Y and Z, which are not zero: their neighbours in
+    the volume are not."""
+    B, X, Y, Z = x.shape
+    c = w.shape[-1]
+    ty, tz = K5_TILE
+    nyt, nzt = -(-Y // ty), -(-Z // tz)
+    yp, zp = nyt * ty, nzt * tz
+    seg_len = -(-X // segs)
+    segs = -(-X // seg_len)
+    xp = torch.nn.functional.pad(x.float(), (1, zp - Z + 1, 1, yp - Y + 1,
+                                             1, 1))
+    zero = torch.zeros(B, X, yp, zp)
+    a = torch.stack([zero if t < 0 else
+                     xp[:, t // 9:t // 9 + X, (t // 3) % 3:(t // 3) % 3 + yp,
+                        t % 3:t % 3 + zp] for t in K5_TAPS])
+    wt = w.float().reshape(27, c)
+    b = torch.stack([torch.zeros(c) if t < 0 else wt[t] for t in K5_TAPS])
+    acc = torch.einsum("kbxyz,kc->bxyzc", a, b)
+    inside = torch.zeros(yp, zp, dtype=torch.bool)
+    inside[:Y, :Z] = True
+    if tail_in_sums:
+        inside[:] = True
+    vals = acc.reshape(B, X, nyt, ty, nzt, tz, c)
+    mask = inside.reshape(nyt, ty, nzt, tz)
+    s = torch.zeros(B, segs, nyt, nzt, K6_WARPS, 8, c)
+    sq = torch.zeros_like(s)
+    for xx in range(X):
+        seg = xx // seg_len
+        for i in range(ty // K6_WARPS):  # tile row r = warp + 8 i
+            rows = slice(K6_WARPS * i, K6_WARPS * (i + 1))
+            for hv in range(2):  # voxel g + 8 hv
+                vox = slice(8 * hv, 8 * hv + 8)
+                v = vals[:, xx, :, rows, :, vox].permute(0, 1, 3, 2, 4, 5)
+                m = mask[:, rows, :, vox].permute(0, 2, 1, 3)[..., None]
+                v = torch.where(m, v, torch.zeros(()))
+                s[:, seg] = s[:, seg] + v
+                sq[:, seg] = (sq[:, seg].double() + v.double() ** 2).float()
+    out = []
+    for t in (s, sq):
+        for lanes in (1, 2, 4):  # shuffles xor 4, 8, 16: g xor 1, 2, 4
+            t = t + t[..., [g ^ lanes for g in range(8)], :]
+        warps = torch.zeros(t.shape[:4] + (c,))
+        for w_ in range(K6_WARPS):
+            warps = warps + t[:, :, :, :, w_, 0]
+        out.append(_reduce_rows(warps.reshape(-1, c)))
+    return acc[:, :, :Y, :Z].to(x.dtype), torch.stack(out)
+
+
+def _stem_inputs(seed, shape, c):
+    """bfloat16 x and weights as chip_smoke draws them: N(0, 1) and
+    0.2 N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+    w = 0.2 * torch.from_numpy(rng.standard_normal((3, 3, 3, c),
+                                                   dtype=np.float32))
+    return x.to(BF16), w.to(BF16)
+
+
+def _stem_misses(y, st, ref_y, ref_st):
+    """chip_smoke's bfloat16 tolerances for K3 / K5: y within one ulp
+    (2^-7 relative) plus 1e-3, the sums within 1e-2 of their largest
+    magnitude. Returns y's elements outside it, and the sums' error as a
+    multiple of their tolerance."""
+    err = (y.float() - ref_y.float()).abs()
+    missed = int((err > 1e-3 + RTOL * ref_y.float().abs()).sum())
+    return missed, float((st - ref_st).abs().max()
+                         / (1e-2 * ref_st.abs().max()))
+
+
+@pytest.mark.parametrize("shape,c,segs", [
+    ((2, 3, 17, 18), 32, 2),   # a partial tile along y, Z two past a tile
+    ((1, 1, 9, 21), 16, 1),    # one plane
+    ((1, 5, 33, 31), 48, 3),   # Y one past a tile, Z one below two, 3 segments
+    ((1, 2, 32, 16), 64, 1),   # Y and Z at a tile
+])
+def test_k5_mma_arithmetic_meets_the_tolerance(shape, c, segs):
+    """The kernel's arithmetic against `_stem_stats_reference`: y within
+    one bfloat16 ulp (only the order of the float32 sum of 27 exact
+    products differs before the one rounding) and the sums within 1e-5 of
+    their largest magnitude, far inside chip_smoke's 1e-2."""
+    x, w = _stem_inputs(29, shape, c)
+    ref_y, ref_st = stem._stem_stats_reference(x, w)
+    y, st = emulate_k5_mma(x, w, segs)
+    missed, sums = _stem_misses(y, st, ref_y, ref_st)
+    assert missed == 0 and sums < 1e-3, (missed, sums)
+
+
+def test_k5_tail_voxels_in_the_sums_miss_the_tolerance():
+    """The sums take the voxels inside the volume only: a tile's voxels
+    past Y and Z are not zero, since their neighbours inside are not.
+    Added, at (2, 3, 17, 18) with 32 channels (the rows y = 17 and the
+    columns z = 18, whose taps reach 9 of 27 neighbours inside) they move
+    the sums of squares by about (1/17 + 1/18) / 3 of their size: 3.7x the
+    1e-2 tolerance with these seeded inputs, while y stays within its own
+    (the emulation without them: 1.1e-5x)."""
+    x, w = _stem_inputs(29, (2, 3, 17, 18), 32)
+    ref_y, ref_st = stem._stem_stats_reference(x, w)
+    y, st = emulate_k5_mma(x, w, segs=2, tail_in_sums=True)
+    missed, sums = _stem_misses(y, st, ref_y, ref_st)
+    assert missed == 0
+    assert sums > 2.0, sums
 
 
 def test_flash_bwd_variant_full_width_bf16_is_mma():

@@ -639,3 +639,38 @@ def test_k6_tensor_core_variant_on_cuda(cuda):
             _match(dw, stem.stem_dw_reference(*args), "s", dtype,
                    f"stem_dw {want} {b} {vol} C{c}")
             assert torch.equal(dw, stem.stem_dw(*args))
+
+
+@pytest.mark.cuda
+def test_k3_k5_tensor_core_variants_on_cuda(cuda):
+    """K3 and K5 "mma" at small shapes against `_stem_stats_reference`: Y
+    and Z off and on the 32 x 16 voxel tile, one plane, odd Z (rows of x
+    not 16-byte aligned), segments along x, 16, 32, 48 and 64 channels; y
+    to one ulp, the float32 sums to 1e-5 of their largest magnitude.
+    bfloat16 takes "mma", float32 "direct", and the count per variant says
+    so; a second K5 call gives the same bits."""
+    def r(*s):
+        return torch.randn(*s, generator=cuda, device="cuda")
+
+    for b, vol, c in ((1, (3, 17, 18), 32), (2, (1, 9, 33), 16),
+                      (1, (4, 32, 16), 64), (1, (20, 15, 17), 48),
+                      (1, (3, 33, 31), 32)):
+        x, w = r(b, *vol), 0.2 * r(3, 3, 3, c)
+        for dtype, want in ((torch.bfloat16, "mma"),
+                            (torch.float32, "direct")):
+            assert stem.conv_variant(dtype, c) == want
+            xd, wd = x.to(dtype), w.to(dtype)
+            stem.STEM_CONV.reset()
+            stem.STEM_CONV_STATS.reset()
+            y = stem.stem_conv(xd, wd)
+            ys, st = stem.stem_conv_stats(xd, wd)
+            torch.cuda.synchronize()
+            assert stem.STEM_CONV.by_variant == {want: 1}
+            assert stem.STEM_CONV_STATS.by_variant == {want: 1}
+            ref, ref_st = stem._stem_stats_reference(xd, wd)
+            what = f"stem_conv {want} {b} {vol} C{c}"
+            _match(y, ref, "v", dtype, what)
+            _match(ys, ref, "v", dtype, what + " with sums")
+            _match(st, ref_st, "s", dtype, what + " sums")
+            again = stem.stem_conv_stats(xd, wd)
+            assert torch.equal(ys, again[0]) and torch.equal(st, again[1])

@@ -131,6 +131,21 @@ __device__ __forceinline__ uint4 quad_transpose(const unsigned (&v)[4], int t) {
               : make_uint4(lo0, lo1, far0, far1);
 }
 
+// The same for two neighbouring tiles, u0 and u1 (16 channels): returns
+// channels 4 t .. 4 t + 3 of the pair, 8 contiguous bytes, so that the quad
+// stores 32 contiguous bytes of one voxel.
+__device__ __forceinline__ uint2 pair_transpose(unsigned u0, unsigned u1,
+                                                int t) {
+  constexpr unsigned kAll = 0xffffffffu;
+  // channel pairs 2 (t & 1) and 2 (t & 1) + 1 of tile t >> 1
+  const int src = (threadIdx.x & 28) | (2 * (t & 1));
+  const unsigned a0 = __shfl_sync(kAll, u0, src);
+  const unsigned a1 = __shfl_sync(kAll, u1, src);
+  const unsigned b0 = __shfl_sync(kAll, u0, src + 1);
+  const unsigned b1 = __shfl_sync(kAll, u1, src + 1);
+  return (t >> 1) ? make_uint2(a1, b1) : make_uint2(a0, b0);
+}
+
 // --- warpgroup MMA (sm_90a) -------------------------------------------------
 //
 // wgmma.mma_async.m64nNk16: the four warps of a warpgroup multiply a 64 x 16

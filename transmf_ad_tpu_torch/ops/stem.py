@@ -13,6 +13,10 @@ Port of `stem_conv` and `stem_conv_stats` from transmf_ad_tpu/ops/stem.py:
 The JAX package's z-blocked full-resolution forms (`stem_conv_stats_blocked`
 and its blocked weight gradient) chunk z to fit the TPU's VMEM; K3, K5 and K6
 tile every volume alike, so the same three kernels take 182x218x182 inputs.
+
+Each of the three has a tensor-core variant "mma" (bfloat16 at the models'
+stem widths) and a CUDA-core variant "direct" (float32 and other channel
+counts): `conv_variant` names K3's and K5's, `dw_variant` K6's.
 """
 
 from __future__ import annotations
@@ -28,15 +32,16 @@ from .._build import INT, PTR, Kernel, check_cuda, library
 
 STEM_CONV = Kernel(
     name="stem_conv", entry="transmf_stem_conv",
-    argtypes=(PTR, PTR, PTR, INT, INT, INT, INT, INT, INT),
+    argtypes=(PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT),
     source="transmf_ad_tpu_torch/csrc/stem_conv.cu",
     replaces="transmf_ad_tpu/ops/stem.py:99")
 
 STEM_CONV_STATS = Kernel(
     name="stem_conv_stats", entry="transmf_stem_conv_stats",
-    argtypes=(PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT),
+    argtypes=(PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT),
     source="transmf_ad_tpu_torch/csrc/stem_conv.cu",
     replaces="transmf_ad_tpu/ops/stem.py:195")
+CONV_VARIANTS = ("direct", "mma")  # K3's and K5's, by their code in C
 
 # also replaces _stem_dw_blocked_kernel (:470)
 STEM_DW = Kernel(
@@ -46,7 +51,9 @@ STEM_DW = Kernel(
     source="transmf_ad_tpu_torch/csrc/stem_conv.cu",
     replaces="transmf_ad_tpu/ops/stem.py:332")
 DW_VARIANTS = ("direct", "mma")  # K6's, by their code in the C interface
-DW_MMA_MAX_CHANNELS = 64  # 64 float32 sums a thread; the ring fits in 227 KB
+# K6: 64 float32 sums a thread, and the ring fits in 227 KB; K3 / K5: the
+# weights, one row's accumulators and the sums, C / 2 registers each
+MMA_MAX_CHANNELS = 64
 
 MAX_CHANNELS = 256
 
@@ -89,11 +96,13 @@ def stem_dw_reference(x, y, gy, a, b2) -> torch.Tensor:
     return dw[:, 0].permute(1, 2, 3, 0).contiguous()
 
 
-def _check_stem(name, x, c: int):
+def _check_stem(name, x, c: int, grid: bool = True):
+    """x is (B, X, Y, Z), C at most MAX_CHANNELS and, with `grid` (the
+    CUDA-core variants' 3-D grid), B * X at most 65535."""
     if x.dim() != 4:
         raise ValueError(f"{name}: x {tuple(x.shape)}, expected (B, X, Y, Z)")
     b, X = x.shape[:2]
-    if c > MAX_CHANNELS or b * X > 65535:
+    if c > MAX_CHANNELS or (grid and b * X > 65535):
         raise ValueError(f"{name}: C={c} (max {MAX_CHANNELS}) or "
                          f"B*X={b * X} (max 65535) out of range")
 
@@ -106,7 +115,7 @@ def _check_weight(name, w):
 @functools.cache
 def _blocks_fn():
     fn = library().transmf_stem_blocks
-    fn.argtypes = [INT, INT, INT, INT]
+    fn.argtypes = [INT] * 5
     fn.restype = ctypes.c_int64
     return fn
 
@@ -124,43 +133,55 @@ def dw_variant(dtype: torch.dtype, c: int) -> str:
     count alone: "mma" (tensor cores) for bfloat16 with C a multiple of 16
     (the product's n8 tiles, loaded two at a time) up to 64 (its float32
     sums stay in a thread's registers), else "direct" (CUDA cores)."""
-    if (dtype == torch.bfloat16 and c % 16 == 0
-            and c <= DW_MMA_MAX_CHANNELS):
+    if dtype == torch.bfloat16 and c % 16 == 0 and c <= MMA_MAX_CHANNELS:
         return "mma"
     return "direct"
+
+
+def conv_variant(dtype: torch.dtype, c: int) -> str:
+    """The K3 and K5 variant a CUDA launch takes, from the dtype and the
+    channel count alone: "mma" (tensor cores) for bfloat16 with C a
+    multiple of 16 (the output's n8 tiles, stored by quads as 16- or
+    8-byte pieces) up to 64 (weights, accumulators and sums in a thread's
+    registers), else "direct" (CUDA cores). K6's rule, for the same
+    reasons of shape."""
+    return dw_variant(dtype, c)
+
+
+def _stem_launch(name, x, w, stats: bool):
+    """K3 (or K5 with `stats`) on CUDA tensors, in the variant that
+    `conv_variant` names: y, and with `stats` the (2, C) sums."""
+    dtype = check_cuda(name, x, w)
+    _check_weight(name, w)
+    c = w.shape[3]
+    which = conv_variant(x.dtype, c)
+    _check_stem(name, x, c, grid=which == "direct")
+    b, X, Y, Z = x.shape
+    code = CONV_VARIANTS.index(which)
+    out = torch.empty(b, X, Y, Z, c, dtype=x.dtype, device=x.device)
+    if not stats:
+        STEM_CONV.launch(x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                         b, X, Y, Z, c, dtype, code, variant=which)
+        return out
+    partial = torch.empty(2, _blocks_fn()(b, X, Y, Z, code), c,
+                          dtype=torch.float32, device=x.device)
+    st = torch.empty(2, c, dtype=torch.float32, device=x.device)
+    STEM_CONV_STATS.launch(x.device, x.data_ptr(), w.data_ptr(),
+                           out.data_ptr(), partial.data_ptr(), st.data_ptr(),
+                           b, X, Y, Z, c, dtype, code, variant=which)
+    return out, st
 
 
 def _stem_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return _conv_reference(x, w)
-    dtype = check_cuda("stem_conv", x, w)
-    _check_weight("stem_conv", w)
-    _check_stem("stem_conv", x, w.shape[3])
-    b, X, Y, Z = x.shape
-    c = w.shape[3]
-    out = torch.empty(b, X, Y, Z, c, dtype=x.dtype, device=x.device)
-    STEM_CONV.launch(x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                     b, X, Y, Z, c, dtype)
-    return out
+    return _stem_launch("stem_conv", x, w, stats=False)
 
 
 def _stem_stats_forward(x: torch.Tensor, w: torch.Tensor):
     if x.device.type == "cpu":
         return _stem_stats_reference(x, w)
-    name = "stem_conv_stats"
-    dtype = check_cuda(name, x, w)
-    _check_weight(name, w)
-    _check_stem(name, x, w.shape[3])
-    b, X, Y, Z = x.shape
-    c = w.shape[3]
-    out = torch.empty(b, X, Y, Z, c, dtype=x.dtype, device=x.device)
-    partial = torch.empty(2, _blocks_fn()(b, X, Y, Z), c,
-                          dtype=torch.float32, device=x.device)
-    st = torch.empty(2, c, dtype=torch.float32, device=x.device)
-    STEM_CONV_STATS.launch(x.device, x.data_ptr(), w.data_ptr(),
-                           out.data_ptr(), partial.data_ptr(), st.data_ptr(),
-                           b, X, Y, Z, c, dtype)
-    return out, st
+    return _stem_launch("stem_conv_stats", x, w, stats=True)
 
 
 def stem_dw(x, y, gy, a, b2) -> torch.Tensor:
@@ -247,8 +268,9 @@ class _StemConvStats(torch.autograd.Function):
 def stem_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Single-channel 3x3x3 SAME conv: (B, X, Y, Z) x (3, 3, 3, C) ->
     (B, X, Y, Z, C), linear (the caller folds bias, BN and activation into
-    the stage-end pool). Kernel K3 on CUDA tensors; the plain version on CPU
-    tensors. Differentiable, with a plain backward."""
+    the stage-end pool). Kernel K3 on CUDA tensors, in the variant
+    `conv_variant` names; the plain version on CPU tensors. Differentiable,
+    with a plain backward."""
     return _StemConv.apply(x, w)
 
 
@@ -256,6 +278,7 @@ def stem_conv_stats(x: torch.Tensor, w: torch.Tensor):
     """`stem_conv` plus float32 (2, C) [sum, sum of squares] of the float32
     accumulator over B, X, Y, Z. Per channel, where the JAX op returns
     per-lane (2, Z*C) sums that its caller folds at once
-    (`st.reshape(2, Z, C).sum(1)`). Kernel K5 on CUDA tensors, backward K6;
-    the plain versions on CPU tensors."""
+    (`st.reshape(2, Z, C).sum(1)`). Kernel K5 on CUDA tensors (in the
+    variant `conv_variant` names), backward K6; the plain versions on CPU
+    tensors."""
     return _StemConvStats.apply(x, w)
