@@ -25,23 +25,28 @@ before the final line:
             where one PyTorch call computes the same function, that call's
             time (a yardstick: nothing in the port calls it for that; for
             K11 and K12 SDPA's forward and backward, and its backward alone
-            with the backend it took); for K2, K3, K5, K6 and K8-K12 the
-            variant the call took ("mma" on the tensor cores for bfloat16 at
-            the models' widths, "rows" / "direct" on the CUDA cores
-            otherwise) and, in
-            bfloat16 at the main shapes, the CUDA-core variant's time in the
-            same run, with edge cases of the tensor-core variants (one and
+            with the backend it took); for K2-K12 the variant the call took
+            ("mma" on the tensor cores for bfloat16 at the models' widths,
+            "vec" for K4 and K7 wherever a channel row is whole 16-byte
+            pieces, "rows" / "direct" otherwise) and, in bfloat16 at the
+            main shapes, the earlier variant's time in the same run, with
+            edge cases of the tensor-core variants (one and
             two planes, tiles one below, at and one above their size,
             weights staged by taps, segments along x, blocks of channels;
-            one query, one key, partial chunks, every head dim); K5's y and
-            sums and K6's dw bit-identical over two calls on the same
-            inputs; then K2 and
-            K10 side by side at 1,573 and 3,146 keys
+            one query, one key, partial chunks, every head dim) and of K4 /
+            K7 (odd tails on each axis, one lane, rows one block below, at
+            and above a block's lanes, C 8, 12, 16, ties, the plain pooling
+            entries, whose library yardsticks are F.max_pool3d /
+            F.avg_pool3d and their backward); K5's y and sums, K6's dw and
+            K7's dy and sums bit-identical over two calls on the same
+            inputs, K4 "vec" and K7's dy bit-identical to "direct"; then K2
+            and K10 side by side at 1,573 and 3,146 keys
 4. serving  full-width ModelAd (dim 128, depth 3, 4 heads x 32, mlp 512) in
             bfloat16, random weights and BN statistics from a seeded
             torch.Generator, answers 6 batch-8 requests of 91x109x91
             MRI+PET (the last 3 timed); every serving kernel's launch count
-            must rise, and every K2 and K3 launch is of the "mma" variant
+            must rise, every K2 and K3 launch is of the "mma" variant and
+            every K4 launch of "vec"
 5. check    the same weights at batch 2 in float32 (TF32 off) on the card and
             through the plain path on the CPU: logits, d_mri and d_pet agree
 6. train    the adversarial train step of full-width ModelAd at batch 8,
@@ -61,7 +66,8 @@ before the final line:
             182x218x182 MRI+PET (the last 2 timed): the stem, both stage-2
             convs (K8) and the lane-vector pools run at full resolution, and
             every launch of K8, K2 and K3 is of the "mma" variant (asserted,
-            in phases 6, 9 and 11 too, for K5, K6 and K9-K12 as well); then
+            in phases 6, 9 and 11 too, for K5, K6 and K9-K12 as well, and
+            "vec" for every K4 and K7 launch); then
             card
             float32
             against the CPU at 35x37x33 with every body conv on the band
@@ -83,6 +89,18 @@ before the final line:
             the one-SGD-step check of phase 7 for transformer_res at 51x53x49
             with the flash gate lowered, so K11 and K12 are held inside a
             real backward
+12. bf16 check  full-width ModelAd in bfloat16 on the card against the
+            card in float32 (phase 7's weights-from-a-seed, batch 4,
+            35x37x33): the eval forward's logits, d_mri, d_pet and one SGD
+            step's losses, within 3x the CPU plain path's own bf16-vs-f32
+            difference + 1e-3 of each output's scale; on the default and on
+            the band route, then transformer_res at 51x53x49 with the flash
+            gate lowered (K10 forward, K11 / K12 in the step); every bf16
+            launch took the variant its rule names ("mma", "vec"). In the
+            bf16 step every call of K6-K9, K11 and K12 is held against
+            its plain version on the model's own inputs, at phase 3's
+            tolerances; the updates in bf16 against f32 are printed, not
+            held (see `bf16_check`)
 
 The line before the last is a JSON object with one entry per kernel: `ms`,
 `plain_ms`, `bound_ms`, `bound_by` and `library_ms` belong to the bfloat16
@@ -148,11 +166,13 @@ RES_TRAIN_KERNELS = ("affine_act_pool", "stem_conv_stats", "stem_dw",
                      "affine_act_pool_bwd", "band_conv", "band_dw",
                      "flash_fwd", "flash_dq", "flash_dkv")
 ATTENTION_CALLS = 6  # per forward: depth 3, one per modality
-# the variant every launch of K2, K3, K5, K6 and K8-K12 must take on the
-# bfloat16 paths
-MMA = {"attention_fwd": "mma", "band_conv": "mma", "band_dw": "mma",
-       "flash_fwd": "mma", "flash_dq": "mma", "flash_dkv": "mma",
-       "stem_conv": "mma", "stem_conv_stats": "mma", "stem_dw": "mma"}
+# the variant every launch of K2-K12 must take on the bfloat16 paths at the
+# models' widths: the tensor cores ("mma"), and K4 / K7's 16-byte groups
+# ("vec")
+FAST = {"attention_fwd": "mma", "band_conv": "mma", "band_dw": "mma",
+        "flash_fwd": "mma", "flash_dq": "mma", "flash_dkv": "mma",
+        "stem_conv": "mma", "stem_conv_stats": "mma", "stem_dw": "mma",
+        "affine_act_pool": "vec", "affine_act_pool_bwd": "vec"}
 
 
 def _median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -229,9 +249,20 @@ class Case:
     # args -> (a second library call to time, what it is): K11 and K12's
     # SDPA backward alone, its forward run outside the timed region
     library_part: object = None
-    # a second call on the same inputs must give the same bits (K5, K6: no
-    # float atomics, partials added in a fixed order)
+    # a second call on the same inputs must give the same bits (K5, K6, K7:
+    # no float atomics, partials added in a fixed order)
     repeat: bool = False
+    # what `earlier` is called in the printed line
+    earlier_name: str = "CUDA-core variant"
+    # args -> the leading outputs of the other variant, which must give the
+    # same bits (K4 "vec" and "direct"; K7's dy)
+    twin: object = None
+    # `library(*args)` returns the call to time, its forward run outside
+    # the timed region (the backward of F.max_pool3d / F.avg_pool3d)
+    library_bwd: bool = False
+    # the positions of arguments the function never reads (K7's mean
+    # backward: p), left out of the bound's bytes
+    unread: tuple = ()
 
 
 def _by_sample(plain, batched, summed=()):
@@ -297,16 +328,26 @@ def _kernel_cases(g):
         n = shape[3] * shape[4] if lanes else shape[4]
         return 1.0 + 0.5 * _randn(g, n), 0.3 * _randn(g, n)
 
-    def pool(shape, lanes):
+    def pool_y(shape, dt, ties):
+        """y, or with `ties` y on a grid of 0.5 (many tied window maxima,
+        exact in bfloat16)"""
+        y = _randn(g, *shape)
+        return ((2 * y).round() / 2 if ties else y).to(dt)
+
+    def pool(shape, lanes, ties=False, identity=False):
         def make(dt):
-            return (_randn(g, *shape).to(dt), *affine(shape, lanes), 0.01)
+            s, b = affine(shape, lanes)
+            if identity:
+                return (pool_y(shape, dt, ties), torch.ones_like(s),
+                        torch.zeros_like(b), 1.0)
+            return pool_y(shape, dt, ties), s, b, 0.01
         return make
 
-    def pool_bwd(shape, lanes, mode, identity=False):
+    def pool_bwd(shape, lanes, mode, identity=False, ties=False):
         """inputs of K7: y, the affine, the plain forward's output p (so
         both sides see the same p) and a pooled gradient g"""
         def make(dt):
-            y = _randn(g, *shape).to(dt)
+            y = pool_y(shape, dt, ties)
             s, b = affine(shape, lanes)
             slope = 0.01
             if identity:
@@ -315,6 +356,28 @@ def _kernel_cases(g):
                 y, s, b, slope, mode)
             return y, s, b, p, _randn(g, *p.shape).to(dt), slope
         return make
+
+    def k4(mode, lanes):
+        """K4 through its wrapper's path, in the variant the rule names"""
+        def kern(y, s, b, slope):
+            return pool3d._affine_act_pool("affine_act_pool", y, s, b, slope,
+                                           mode, lanes)
+        return kern
+
+    def k4_direct(mode, lanes):
+        """K4's "direct" variant on the arguments of `k4`, whatever the
+        channel count"""
+        def run(y, s, b, slope):
+            bb, X, Y, Z, C = y.shape
+            out = torch.empty(bb, X // 2, Y // 2, Z // 2, C, dtype=y.dtype,
+                              device="cuda")
+            pool3d.AFFINE_ACT_POOL.launch(
+                y.device, y.data_ptr(), s.data_ptr(), b.data_ptr(),
+                out.data_ptr(), bb, X, Y, Z, C, C if lanes else 0,
+                float(slope), pool3d._MODES[mode],
+                _build.DTYPE_CODES[y.dtype], 0, 0, variant="direct")
+            return out
+        return run
 
     def k7(mode, lanes, round_gi):
         def kern(y, s, b, p, gg, slope):
@@ -325,6 +388,60 @@ def _kernel_cases(g):
             return pool3d.affine_act_pool_bwd_reference(y, s, b, p, gg, slope,
                                                         mode, round_gi)
         return kern, plain
+
+    def k7_direct(mode, lanes, round_gi):
+        """K7's "direct" variant on the arguments of `k7`, whatever the
+        channel count"""
+        def run(y, s, b, p, gg, slope):
+            bb, X, Y, Z, C = y.shape
+            grid = pool3d.bwd_blocks("direct", y.dtype, bb, X, Y, Z, C)
+            dy = torch.empty_like(y)
+            part = torch.empty(2, grid, Z * C, device="cuda")
+            dsb = torch.empty(2, s.numel(), device="cuda")
+            pool3d.AFFINE_ACT_POOL_BWD.launch(
+                y.device, y.data_ptr(), s.data_ptr(), b.data_ptr(),
+                p.data_ptr(), gg.data_ptr(), dy.data_ptr(), part.data_ptr(),
+                dsb.data_ptr(), bb, X, Y, Z, C, C if lanes else 0,
+                float(slope), pool3d._MODES[mode], int(round_gi), grid,
+                _build.DTYPE_CODES[y.dtype], 0, 0, variant="direct")
+            return dy, dsb
+        return run
+
+    def pool_cases(label, shape, timed, lanes, mode, identity=False,
+                   ties=False):
+        """K4 and K7 at one shape in one mode, each checked against its
+        plain version, "vec" against "direct" bit for bit (K4; K7's dy)
+        and K7's two calls on the same inputs bit for bit; `timed` adds
+        "direct"'s time in the same run. `identity`: plain pooling, with
+        the library's pooling and its backward as yardsticks; untimed, K4
+        through the public entry (which makes the identity affine too)"""
+        round_gi = mode == "max" and (lanes or identity)
+        ref = functools.partial(pool3d.affine_act_pool_reference, mode=mode)
+        k7_kern, k7_plain = k7(mode, lanes, round_gi)
+        if shape[0] == FULL_BATCH and shape[1] == FULL_VOLUME[0]:
+            ref = _by_sample(ref, (0,))
+            k7_plain = _by_sample(k7_plain, (0, 3, 4), summed=(1,))
+        fwd_tol = ([_elem(1e-6, 1e-6)], [_elem(BF16_RTOL, 0.0)]) \
+            if mode == "avg" else (exact, exact)
+        kern, direct = k4(mode, lanes), k4_direct(mode, lanes)
+        k7_dir = k7_direct(mode, lanes, round_gi)
+        if identity and not timed:
+            entry = (pool3d.max_pool3d_2x2 if mode == "max"
+                     else pool3d.avg_pool3d_2x2)
+            kern = lambda y, *_: entry(y)  # noqa: E731
+        return [
+            Case("affine_act_pool", label, kern, ref,
+                 pool(shape, lanes, ties, identity), *fwd_tol, pool_ops,
+                 lib_pool(mode) if identity else None,
+                 direct if timed else None, timed, earlier_name="direct",
+                 twin=direct),
+            Case("affine_act_pool_bwd", label, k7_kern, k7_plain,
+                 pool_bwd(shape, lanes, mode, identity, ties), *bwd,
+                 pool_bwd_ops, lib_pool_bwd(mode) if identity else None,
+                 k7_dir if timed else None, timed, repeat=True,
+                 earlier_name="direct",
+                 twin=lambda *args: k7_dir(*args)[0],
+                 library_bwd=identity, unread=(3,) if mode == "avg" else ())]
 
     def stem_in(b, volume, c=32):
         def make(dt):
@@ -405,6 +522,25 @@ def _kernel_cases(g):
         return conv3d_weight(x.permute(0, 4, 1, 2, 3),
                              (gy.shape[-1], x.shape[-1], 3, 3, 3),
                              gy.permute(0, 4, 1, 2, 3), padding=1)
+
+    def lib_pool(mode):
+        """F.max_pool3d / F.avg_pool3d on the channels_last_3d view of y"""
+        fn = F.max_pool3d if mode == "max" else F.avg_pool3d
+        return lambda y, *_: fn(y.permute(0, 4, 1, 2, 3), 2)
+
+    def lib_pool_bwd(mode):
+        """their autograd backward alone (the forward runs outside the
+        timed call); for max it routes a window's gradient to one index,
+        the same function as K7's only where the window's maximum is
+        unique, and its time does not depend on that"""
+        fn = F.max_pool3d if mode == "max" else F.avg_pool3d
+
+        def prep(y, s, b, p, gg, slope):
+            x = y.permute(0, 4, 1, 2, 3).detach().requires_grad_()
+            out = fn(x, 2)
+            go = gg.permute(0, 4, 1, 2, 3)
+            return lambda: torch.autograd.grad(out, x, go, retain_graph=True)
+        return prep
 
     def lib_attn(q, k, v, scale):
         return F.scaled_dot_product_attention(q, k, v, scale=scale)
@@ -533,8 +669,6 @@ def _kernel_cases(g):
             variant="direct")
         return dw
 
-    max_ref = functools.partial(pool3d.affine_act_pool_reference, mode="max")
-    avg_ref = functools.partial(pool3d.affine_act_pool_reference, mode="avg")
     exact = [_elem(0.0, 0.0)]
     # float32: the order of f32 sums differs (and cuDNN may pick Winograd or
     # FFT algorithms for the plain conv); bfloat16: one ulp of the output,
@@ -565,7 +699,6 @@ def _kernel_cases(g):
     full1 = (FULL_BATCH, *FULL_VOLUME, 32)
     full2 = (FULL_BATCH, *VOLUME, 64)
     full_in = f"({FULL_BATCH},{','.join(map(str, FULL_VOLUME))})"
-    k7_full, k7_full_plain = k7("max", True, True)
     band_fwd = functools.partial(band_conv._band_forward, stats=False)
     band_fwd_stats = functools.partial(band_conv._band_forward, stats=True)
     cases = [
@@ -583,18 +716,6 @@ def _kernel_cases(g):
         Case("stem_conv", "(8,91,109,91)->C32", stem.stem_conv,
              stem._conv_reference, stem_in(BATCH, VOLUME), *conv, conv_ops,
              lib_stem, stem_direct(False)),
-        Case("affine_act_pool", "max lanes (8,91,109,91,32)",
-             pool3d.max_pool3d_2x2_affine_act, max_ref, pool(stage1, True),
-             exact, exact, pool_ops),
-        Case("affine_act_pool", "max chan (8,45,54,45,64)",
-             pool3d.max_pool3d_2x2_affine_act_bc, max_ref,
-             pool(stage2, False), exact, exact, pool_ops),
-        Case("affine_act_pool", "max chan (8,22,27,22,128)",
-             pool3d.max_pool3d_2x2_affine_act_bc, max_ref,
-             pool(stage3, False), exact, exact, pool_ops),
-        Case("affine_act_pool", "avg chan (8,11,13,11,128)",
-             pool3d.avg_pool3d_2x2_affine_act, avg_ref, pool(stage4, False),
-             [_elem(1e-6, 1e-6)], [_elem(BF16_RTOL, 0.0)], pool_ops),
         Case("stem_conv_stats", "(8,91,109,91)->C32 + (2,32) sums",
              stem.stem_conv_stats, stem._stem_stats_reference,
              stem_in(BATCH, VOLUME), *conv_stats, conv_ops, lib_stem,
@@ -602,22 +723,17 @@ def _kernel_cases(g):
         Case("stem_dw", "(8,91,109,91) x (..,32) -> (3,3,3,32)", stem.stem_dw,
              stem.stem_dw_reference, dw_in(BATCH, VOLUME), *dw_tol,
              stem_dw_ops, lib_stem_dw, stem_dw_direct, repeat=True),
-        Case("affine_act_pool_bwd", "max lanes (8,91,109,91,32)",
-             *k7("max", True, True), pool_bwd(stage1, True, "max"), *bwd,
-             pool_bwd_ops),
-        Case("affine_act_pool_bwd", "max chan (8,45,54,45,64)",
-             *k7("max", False, False), pool_bwd(stage2, False, "max"), *bwd,
-             pool_bwd_ops),
-        Case("affine_act_pool_bwd", "max chan (8,22,27,22,128)",
-             *k7("max", False, False), pool_bwd(stage3, False, "max"), *bwd,
-             pool_bwd_ops),
-        Case("affine_act_pool_bwd", "avg chan (8,11,13,11,128)",
-             *k7("avg", False, False), pool_bwd(stage4, False, "avg"), *bwd,
-             pool_bwd_ops),
-        Case("affine_act_pool_bwd", "identity max (8,11,13,11,128)",
-             *k7("max", False, True),
-             pool_bwd(stage4, False, "max", identity=True), *bwd,
-             pool_bwd_ops),
+        # K4 and K7 at the shapes of the 91x109x91 path: the four stage ends,
+        # then plain max and mean pooling (library: F.max_pool3d and
+        # F.avg_pool3d on a channels_last_3d tensor, and their backward)
+        *pool_cases("max lanes (8,91,109,91,32)", stage1, True, True, "max"),
+        *pool_cases("max chan (8,45,54,45,64)", stage2, True, False, "max"),
+        *pool_cases("max chan (8,22,27,22,128)", stage3, True, False, "max"),
+        *pool_cases("avg chan (8,11,13,11,128)", stage4, True, False, "avg"),
+        *pool_cases("identity max (8,11,13,11,128)", stage4, True, False,
+                    "max", identity=True),
+        *pool_cases("identity avg (8,11,13,11,128)", stage4, True, False,
+                    "avg", identity=True),
         # --- the full-resolution path -------------------------------------
         Case("stem_conv", f"{full_in}->C32", stem.stem_conv,
              _by_sample(stem._conv_reference, (0,)),
@@ -632,19 +748,10 @@ def _kernel_cases(g):
              _by_sample(stem.stem_dw_reference, (0, 1, 2), summed=(0,)),
              dw_in(FULL_BATCH, FULL_VOLUME), *dw_tol, stem_dw_ops,
              lib_stem_dw, stem_dw_direct, repeat=True),
-        Case("affine_act_pool", f"max lanes {full_in[:-1]},32), 5824 lanes",
-             pool3d.max_pool3d_2x2_affine_act, _by_sample(max_ref, (0,)),
-             pool(full1, True), exact, exact, pool_ops),
-        Case("affine_act_pool", "max lanes (6,91,109,91,64), 5824 lanes",
-             pool3d.max_pool3d_2x2_affine_act, max_ref, pool(full2, True),
-             exact, exact, pool_ops),
-        Case("affine_act_pool_bwd",
-             f"max lanes {full_in[:-1]},32), 5824 lanes", k7_full,
-             _by_sample(k7_full_plain, (0, 3, 4), summed=(1,)),
-             pool_bwd(full1, True, "max"), *bwd, pool_bwd_ops),
-        Case("affine_act_pool_bwd", "max lanes (6,91,109,91,64), 5824 lanes",
-             *k7("max", True, True), pool_bwd(full2, True, "max"), *bwd,
-             pool_bwd_ops),
+        *pool_cases(f"max lanes {full_in[:-1]},32), 5824 lanes", full1,
+                    True, True, "max"),
+        *pool_cases("max lanes (6,91,109,91,64), 5824 lanes", full2, True,
+                    True, "max"),
     ]
     # K10-K12 at the joint context of a 182x218x182 pair (1,573 queries of a
     # modality over 3,146 keys; 1,573 = 49 x 32 + 5 and 3,146 = 98 x 32 + 10
@@ -718,6 +825,35 @@ def _kernel_cases(g):
                  band_conv.band_conv_stats_reference,
                  band_small(b, volume, cin, cout), *conv_stats, conv_ops,
                  timed=False)]
+    # edge cases of K4 and K7, both variants (the wrapper's, then "direct"
+    # bit for bit): odd tails on each axis, Z*C one group, a pooled row of
+    # 376, 384 and 392 bfloat16 lanes (one block below, at and above its
+    # 384 threads: two slices; float32 has twice the lanes), C 8 and 16,
+    # C 12 (bfloat16 "direct", float32 "vec"), many ties, and the identity
+    # max and mean entries
+    for label, shape in (("odd X", (2, 7, 6, 6, 32)),
+                         ("odd Y", (2, 6, 9, 6, 32)),
+                         ("odd Z", (2, 6, 6, 9, 32)),
+                         ("odd X, Y, Z", (1, 5, 7, 9, 16)),
+                         ("Z*C one group", (1, 3, 5, 2, 8)),
+                         ("C 8", (2, 5, 6, 7, 8)),
+                         ("C 12", (2, 5, 6, 7, 12)),
+                         ("376 lanes", (1, 3, 5, 95, 64)),
+                         ("384 lanes", (1, 3, 5, 96, 64)),
+                         ("392 lanes", (1, 3, 4, 98, 64))):
+        for lanes, mode in ((True, "max"), (False, "max"), (False, "avg")):
+            cases += pool_cases(
+                f"{mode} {'lanes' if lanes else 'chan'} {label} {shape}",
+                shape, False, lanes, mode)
+    for lanes, identity in ((True, False), (False, False), (False, True)):
+        cases += pool_cases(
+            f"max {'identity' if identity else 'lanes' if lanes else 'chan'}"
+            " ties (2,6,8,10,32)", (2, 6, 8, 10, 32), False, lanes, "max",
+            identity=identity, ties=True)
+    for mode in ("max", "avg"):
+        cases += pool_cases(f"{mode} identity entry (1,5,7,9,16)",
+                            (1, 5, 7, 9, 16), False, False, mode,
+                            identity=True)
     # edge cases of K2 "mma" (float32 takes "rows"): one query, one key, a
     # partial first chunk, keys and queries one below, at and one above a
     # chunk and a block, every head dim; then the full-resolution path's
@@ -849,8 +985,9 @@ def _bound(case, args, outs, tag):
     every output written once) over the HBM rate and its operations over
     the peak for their type: the tensor cores' for products of bfloat16
     inputs, the CUDA cores' float32 rate otherwise."""
+    read = [a for i, a in enumerate(args) if i not in case.unread]
     nbytes = sum(t.numel() * t.element_size()
-                 for t in (*args, *outs) if isinstance(t, torch.Tensor))
+                 for t in (*read, *outs) if isinstance(t, torch.Tensor))
     ops, kind = case.work(*args)
     peak = PEAK[tag] if kind == "mma" else PEAK["float32"]
     by_bytes, by_ops = 1e3 * nbytes / HBM_RATE, 1e3 * ops / peak
@@ -886,6 +1023,13 @@ def check_kernels(results, only=()):
                     raise AssertionError(f"{name} {label}: two calls on the "
                                          "same inputs differ")
                 del again
+            if case.twin is not None:
+                twin = case.twin(*args)
+                twin = twin if isinstance(twin, tuple) else (twin,)
+                if not all(torch.equal(o, t) for o, t in zip(outs, twin)):
+                    raise AssertionError(f"{name} {label}: the two variants "
+                                         "give different bits")
+                del twin
             for o, r in zip(outs, refs, strict=True):
                 if o.shape != r.shape or o.dtype != r.dtype:
                     raise AssertionError(f"{name} {label}: {o.shape} "
@@ -902,7 +1046,9 @@ def check_kernels(results, only=()):
                               for k, r, a in dtols)
             line = (f"[kernel] {name}{took} {label} {tag}: max_abs_err="
                     f"{[float(f'{e:.3g}') for e in errs]} ({tol_s}) {verdict}"
-                    + (", two calls bit-identical" if case.repeat else ""))
+                    + (", two calls bit-identical" if case.repeat else "")
+                    + (", the other variant bit-identical"
+                       if case.twin is not None else ""))
             if not ok:
                 print(line, flush=True)
                 raise AssertionError(f"{name} {label} {tag} disagrees with "
@@ -910,8 +1056,12 @@ def check_kernels(results, only=()):
             if case.timed:
                 ms = _median_ms(lambda: case.kern(*args))
                 plain_ms = _median_ms(lambda: case.plain(*args))
-                library_ms = (None if case.library is None
-                              else _median_ms(lambda: case.library(*args)))
+                if case.library is None:
+                    library_ms = None
+                elif case.library_bwd:
+                    library_ms = _median_ms(case.library(*args))
+                else:
+                    library_ms = _median_ms(lambda: case.library(*args))
                 lib_s = ("none" if library_ms is None
                          else f"{library_ms:.4f} ms")
                 line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -923,7 +1073,7 @@ def check_kernels(results, only=()):
                     del part
                 if case.earlier is not None and dt == torch.bfloat16:
                     was = _median_ms(lambda: case.earlier(*args))
-                    line += (f", CUDA-core variant {was:.4f} ms "
+                    line += (f", {case.earlier_name} {was:.4f} ms "
                              f"({was / ms:.1f}x)")
             else:
                 line += "; an edge case, not timed"
@@ -980,7 +1130,7 @@ def _require_launches(tag, launches, kernels, exact):
 
 def serve(card, tag="serving", batch=BATCH, volume=VOLUME, warmup=WARMUP,
           n_requests=REQUESTS, kernels=SERVING_KERNELS, model_name="ad",
-          exact=None, variants=MMA):
+          exact=None, variants=FAST):
     """Serve `n_requests` requests of host arrays through
     `make_inference_fn`; returns the model, a float32 CPU copy of it and
     the launch counts of this run, counted from zero. `exact`: launch
@@ -1120,7 +1270,7 @@ def _snapshot(model):
 
 def train(card, tag="train", batch_size=BATCH, volume=VOLUME,
           warmup=TRAIN_WARMUP, steps=TRAIN_STEPS, kernels=TRAIN_KERNELS,
-          model_name="ad", exact=None, variants=MMA):
+          model_name="ad", exact=None, variants=FAST):
     """The train step at full width: ms/step, volumes/s, every loss, the
     launch counts of this run (counted from zero) and its peak memory.
     `exact`: launch counts per step that must hold exactly. `variants`: the
@@ -1187,16 +1337,16 @@ def train(card, tag="train", batch_size=BATCH, volume=VOLUME,
     return launches
 
 
-def sgd_step(model, device, batch, adversarial=True):
+def sgd_step(model, device, batch, adversarial=True, dtype=torch.float32):
     """One step of the port's train step with SGD (lr 1, no momentum, so
-    each parameter update is minus its gradient) in float32: name -> tensor
-    on the CPU for the three losses, every parameter update and every
-    running statistic."""
+    each parameter update is minus its gradient), computing in `dtype`
+    with float32 parameters: name -> tensor on the CPU for the three
+    losses, every parameter update and every running statistic."""
     from transmf_ad_tpu_torch.train import create_state, make_train_step
 
     before = _snapshot(model)
     aux = make_train_step(adversarial=adversarial)(
-        create_state(model, device, torch.float32, name="SGD", lr=1.0,
+        create_state(model, device, dtype, name="SGD", lr=1.0,
                      milestones=()), batch)
     out = {k: aux[k].float().cpu() for k in ("loss", "ce_loss", "ad_loss")}
     for k, v in _snapshot(model).items():
@@ -1306,6 +1456,232 @@ def train_check(model_name="ad", volume=CHECK_VOLUME, **model_kw):
           f"(name, of the tolerance, of the 1e-3 part)", flush=True)
 
 
+def _band_route_variants(step: bool):
+    """K8 and K9 launches of full-width ModelAd on the band route in
+    bfloat16, per eval forward (or per train step), by the variant the
+    rules send each to: every 3x3x3 body conv of both encoders forward,
+    and in a step its input gradient (Cin and Cout swapped: 256 -> 128 is
+    "direct") and its weight gradient"""
+    from transmf_ad_tpu_torch.nn.blocks import _PLAN
+    from transmf_ad_tpu_torch.ops import band_conv
+
+    want = {"band_conv": {}, "band_dw": {}}
+
+    def add(name, which):
+        want[name][which] = want[name].get(which, 0) + 2  # two encoders
+
+    for _, _, _, (ci, co), kernel, _ in _PLAN:
+        if kernel != 3 or ci == 0:
+            continue
+        cin, cout = ci * 32, co * 32
+        add("band_conv", band_conv.variant(torch.bfloat16, cin, cout))
+        if step:
+            add("band_conv", band_conv.variant(torch.bfloat16, cout, cin))
+            add("band_dw", band_conv.dw_variant(torch.bfloat16, cin, cout))
+    return want
+
+
+@contextlib.contextmanager
+def held_in_model(held):
+    """Every call of the backward kernels K6, K7, K9, K11 and K12, and of
+    K8 (forward and dx), while the context is open is held against its
+    plain version on the same inputs, the model's own activations and
+    gradients, at phase 3's bfloat16 tolerances (K7's dy and K8's y one
+    ulp, K8's plus 1e-3; the float32 sums 1e-2 of their largest magnitude;
+    K11 / K12 1e-4 of the output's scale plus one ulp); a disagreement
+    raises. `held` collects, per kernel, the calls held and the largest
+    error as a share of its tolerance. The kernels launch as the model
+    launches them; the plain versions launch nothing."""
+    from transmf_ad_tpu_torch.ops import band_conv, pool3d, stem
+    from transmf_ad_tpu_torch.ops import flash_attention as fa
+
+    ulp, sums = _elem(BF16_RTOL, 0.0), _sums(1e-2)
+    conv, flash = _elem(BF16_RTOL, 1e-3), _scaled(BF16_RTOL, 1e-4)
+
+    def k7_plain(y, s, b, p, g, slope, mode, lanes, round_gi):
+        return pool3d.affine_act_pool_bwd_reference(y, s, b, p, g, slope,
+                                                    mode, round_gi)
+
+    def k8_plain(x, w, stats):
+        return (band_conv.band_conv_stats_reference(x, w) if stats
+                else band_conv.band_conv_reference(x, w))
+
+    def k8_tols(x, w, stats):
+        return (conv, sums) if stats else (conv,)
+
+    specs = [(pool3d, "affine_act_pool_bwd", k7_plain, (ulp, sums)),
+             (band_conv, "_band_forward", k8_plain, k8_tols),
+             (stem, "stem_dw", stem.stem_dw_reference, (sums,)),
+             (band_conv, "band_dw", band_conv.band_dw_reference, (sums,)),
+             (fa, "flash_dq", fa.flash_dq_reference, (flash,)),
+             (fa, "flash_dkv", fa.flash_dkv_reference, (flash, flash))]
+    saved = [getattr(mod, name) for mod, name, _, _ in specs]
+
+    def spy(name, kern, plain, tols):
+        def run(*args):
+            out = kern(*args)
+            outs = out if isinstance(out, tuple) else (out,)
+            refs = plain(*args)
+            refs = refs if isinstance(refs, tuple) else (refs,)
+            worst = 0.0
+            for o, r, tol in zip(outs, refs,
+                                 tols(*args) if callable(tols) else tols,
+                                 strict=True):
+                if not _agree(o, r, tol):
+                    raise AssertionError(
+                        f"{name} in the model: {tuple(o.shape)} "
+                        f"{o.dtype} off its plain version by "
+                        f"{float((o.float() - r.float()).abs().max())} "
+                        f"(tolerance {tol})")
+                worst = max(worst, _share(o, r, tol))
+            calls, top = held.get(name, (0, 0.0))
+            held[name] = (calls + 1, max(top, worst))
+            return out
+        return run
+
+    for (mod, name, plain, tols), kern in zip(specs, saved):
+        setattr(mod, name, spy(name, kern, plain, tols))
+    try:
+        yield held
+    finally:
+        for (mod, name, _, _), kern in zip(specs, saved):
+            setattr(mod, name, kern)
+
+
+def _share(out, ref, tol) -> float:
+    """the largest error of `out` as a share of what `_agree` allows"""
+    kind, rtol, atol = tol
+    err = (out.float() - ref.float()).abs()
+    scale = float(ref.float().abs().max())
+    if kind == "sum":
+        return float(err.max()) / (rtol * scale) if scale else 0.0
+    if kind == "scaled":
+        atol *= scale
+    room = atol + rtol * ref.float().abs()
+    some = room > 0  # where there is none, `_agree` held the error to 0
+    return float((err[some] / room[some]).max()) if bool(some.any()) else 0.0
+
+
+def _rel(a, b):
+    """|a - b| / |b| by the norm, 0 where both are 0"""
+    den = float(b.norm())
+    return float((a - b).norm()) / den if den else float((a - b).norm())
+
+
+def bf16_check(model_name="ad", volume=CHECK_VOLUME, **model_kw):
+    """Phase 12: a full-width model in bfloat16 on the card against float32
+    on the card, with the same weights and inputs (phase 7's: batch 4, no
+    augmentation or dropout; transformer_res at its larger volume with the
+    flash gate lowered, so K10 runs in the forward and K11 / K12 in the
+    step): the eval forward's outputs (ModelAd: logits, d_mri and d_pet)
+    and one SGD step's losses. The CPU's plain path runs the same in
+    bfloat16 and float32 in this run, and sets the tolerance: per output,
+    max |card bf16 - card f32| <= 3 x max |CPU bf16 - CPU f32| + 1e-3 of
+    the output's scale (its largest magnitude on the CPU in float32).
+
+    The step's parameter updates are printed, not held to that rule: in
+    bfloat16 one step's update differs from float32 by a large share of its
+    norm on the card and on the CPU alike (max-pool winners and LeakyReLU
+    sides flip with the roundings, and the bf16 backward carries a change
+    of an ulp anywhere through flipped roundings of the gradients), so no
+    rule on the updates can hold a backward kernel. Instead every call of
+    K6, K7, K8 (forward and dx), K9, K11 and K12 in the card's bf16 step is
+    held against its plain version on the same inputs (`held_in_model`),
+    and each kernel the route runs must have been held. The bf16 card runs
+    take the tensor cores and K4 / K7 "vec" wherever the variant rules
+    send them (asserted)."""
+    from transmf_ad_tpu_torch.models import ADVERSARIAL, build_model
+    from transmf_ad_tpu_torch.ops import reset_launch_counts
+    from transmf_ad_tpu_torch.utils.weights import init_weights
+
+    tag = " ".join(["bf16 check", *([model_name] if model_name != "ad"
+                                    else []),
+                    *([str(model_kw)] if model_kw else [])])
+    g = torch.Generator().manual_seed(7)
+    model = build_model(model_name, head_dropout=0.0, **model_kw)
+    init_weights(model, g)
+    randomize_bn(model, g)
+    batch = check_batch(7, volume)
+    adversarial = model_name in ADVERSARIAL
+    flash = model_name == "transformer_res"
+    outputs = ("logits", "d_mri", "d_pet") if adversarial else ("logits",)
+    losses = ("loss", "ce_loss", "ad_loss")
+    runs, steps, held = {}, {}, {}
+    for device, dt in (("cuda", torch.bfloat16), ("cuda", torch.float32),
+                       ("cpu", torch.bfloat16), ("cpu", torch.float32)):
+        reset_launch_counts()
+        with (flash_gate(FLASH_CHECK_GATE) if flash
+              else contextlib.nullcontext()):
+            m = copy.deepcopy(model).to(device).eval()
+            with torch.inference_mode():
+                out = m(*(batch[k].to(device, dt)[..., None]
+                          for k in ("MRI", "PET")), train=False)
+            res = {k: t.float().cpu() for k, t in
+                   zip(outputs, out if adversarial else (out,), strict=True)}
+            forward = _launches()
+            card16 = device == "cuda" and dt == torch.bfloat16
+            with (held_in_model(held) if card16
+                  else contextlib.nullcontext()):
+                steps[device, dt] = sgd_step(copy.deepcopy(model), device,
+                                             batch, adversarial, dt)
+        runs[device, dt] = res | {k: steps[device, dt][k] for k in losses}
+        if device == "cuda" and dt == torch.bfloat16:
+            band = model_kw.get("band_min_voxels") == 0
+            fast = {k: v for k, v in FAST.items()
+                    if not (band and k.startswith("band_"))}
+            took = _require_variants(tag, fast)
+            if band:
+                want = _band_route_variants(False)
+                for name, n in _band_route_variants(True).items():
+                    for which, c in n.items():
+                        want[name][which] = want[name].get(which, 0) + c
+                got = {k: took.get(k, {}) for k in want}
+                if got != want:
+                    raise AssertionError(f"{tag}: K8 / K9 variants {got}, "
+                                         f"the rules give {want}")
+            if not (forward["affine_act_pool"]
+                    and took.get("affine_act_pool_bwd")):
+                raise AssertionError(f"{tag}: K4 or K7 not launched")
+            if flash and not all(took.get(k) for k in
+                                 ("flash_fwd", "flash_dq", "flash_dkv")):
+                raise AssertionError(f"{tag}: K10, K11 or K12 not launched")
+            want = {"affine_act_pool_bwd", "stem_dw",
+                    *(["band_dw", "_band_forward"] if band else []),
+                    *(["flash_dq", "flash_dkv"] if flash else [])}
+            if not want <= set(held):
+                raise AssertionError(f"{tag}: {sorted(want - set(held))} "
+                                     "not held in the bf16 step")
+    rows = []
+    for name, ref in runs["cpu", torch.float32].items():
+        card = (runs["cuda", torch.bfloat16][name]
+                - runs["cuda", torch.float32][name]).abs().max().item()
+        cpu = (runs["cpu", torch.bfloat16][name] - ref).abs().max().item()
+        tol = 3.0 * cpu + 1e-3 * ref.abs().max().item()
+        if not (torch.isfinite(runs["cuda", torch.bfloat16][name]).all()
+                and card <= tol):
+            raise AssertionError(
+                f"{tag}: {name} card bf16 vs f32 differ by {card} (tol "
+                f"{tol}: 3 x {cpu} on the CPU + 1e-3 of the scale)")
+        rows.append((name, round(card, 6), round(cpu, 6), round(tol, 6)))
+    # the updates in bf16 against f32, by the norm (printed, not held)
+    moved, spread = {}, {}
+    for dev in ("cuda", "cpu"):
+        low, high = steps[dev, torch.bfloat16], steps[dev, torch.float32]
+        moved[dev] = [_rel(low[k], high[k]) for k in high
+                      if k.endswith(" update")]
+        spread[dev] = [round(float(np.quantile(moved[dev], q)), 3)
+                       for q in (0.5, 0.9)]
+    print(f"[{tag}] full width, batch {CHECK_BATCH} x {volume}, card "
+          f"bf16 vs card f32 against cpu bf16 vs cpu f32 (name, card err, "
+          f"cpu err, tol): {rows}; the step's {len(moved['cuda'])} updates, "
+          f"bf16 vs f32 by the norm (median, 90th percentile; not held): card "
+          f"{spread['cuda']}, cpu {spread['cpu']}; in the bf16 step every "
+          f"backward kernel call against its plain version on the same "
+          f"inputs (kernel: calls, largest error of the tolerance): "
+          f"{ {k: (n, round(w, 4)) for k, (n, w) in held.items()} }; "
+          f"variants {took}", flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", nargs="+", default=(), metavar="KERNEL",
@@ -1398,6 +1774,10 @@ def main(argv=None) -> int:
     lap("transformer_res train")
     train_check("transformer_res", RES_CHECK_VOLUME)
     lap("transformer_res train check")
+    bf16_check()
+    bf16_check(band_min_voxels=0)
+    bf16_check("transformer_res", RES_CHECK_VOLUME)
+    lap("bf16 checks")
     runs = {"serving": serving, "train": trained,
             "serving, full resolution": full_serving,
             "train, full resolution": full_trained,

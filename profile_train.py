@@ -14,20 +14,34 @@ device ms (torch.profiler: the union of device-event intervals over 3 calls,
 divided by 3). Then the largest device kernels of 3 profiled steps, the
 kernel launches per step and the peak device memory of a step. With
 --serving, the same for one serving request of that batch and volume.
+
+Last, the device time of 3 more profiled steps (and requests) by call
+site: this script alone wraps the encoders' blocks (conv, BatchNorm
+statistics, affine + LeakyReLU, pool) and the step's other parts in
+`torch.profiler.record_function` ranges, and gives each device kernel the
+innermost range that launched it; a kernel of the backward gets the range
+whose forward op made its autograd node (the profiler's sequence numbers),
+marked "backward". Kernels split into the hand-written ones, cuDNN /
+cuBLAS, and PyTorch's own (elementwise, reductions, copies).
 Needs a CUDA device.
 """
 import argparse
+import collections
+import functools
 import json
 import subprocess
 import time
+import types
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 import chip_smoke as cs
 from transmf_ad_tpu_torch.data.transforms import AugmentConfig
 from transmf_ad_tpu_torch.models import ADVERSARIAL, build_model
+from transmf_ad_tpu_torch.nn import batchnorm, blocks
+from transmf_ad_tpu_torch.train import steps
 from transmf_ad_tpu_torch.nn.blocks import global_avg_pool, tokens_from_volume
 from transmf_ad_tpu_torch.serving import make_inference_fn
 from transmf_ad_tpu_torch.train import create_state, make_train_step
@@ -194,3 +208,147 @@ def largest_kernels(fn, what):
 largest_kernels(lambda: step(state, batch), "step")
 if args.serving:
     largest_kernels(lambda: infer(*host), "request")
+
+
+# --- device time by call site ----------------------------------------------
+SITE = "site: "  # prefix of this script's ranges
+
+
+def _ranged(name, fn):
+    """fn inside a profiler range named SITE + name (`name` may be a
+    function of the call's arguments)"""
+    @functools.wraps(fn)
+    def run(*a, **kw):
+        label = name(*a, **kw) if callable(name) else name
+        with record_function(SITE + label):
+            return fn(*a, **kw)
+    return run
+
+
+def label_call_sites(models, state):
+    """Wrap the encoders' glue and the step's parts in named ranges. Only
+    this script does this; no module of the package changes. A block is
+    named by its conv slot in the reference sNet (conv1.0 ... conv4.3),
+    the same in both encoders."""
+    names = {}
+    for m in models:
+        for n, mod in m.named_modules():
+            if n.endswith(tuple(f".conv{i}" for i in range(1, 5))):
+                for slot, sub in mod.items():
+                    names[id(sub)] = f"{n.rsplit('.', 1)[-1]}.{slot}"
+    blocks.conv_bn_act = _ranged(
+        lambda x, conv, *a, **kw: "encoder " + names.get(id(conv), "?"),
+        blocks.conv_bn_act)
+    for attr, label in (("stem_conv", "conv"), ("stem_conv_stats", "conv"),
+                        ("band_conv3d", "conv"),
+                        ("band_conv3d_stats", "conv"),
+                        ("bn_affine_reference", "affine + LeakyReLU"),
+                        ("max_pool3d_2x2_affine_act", "pool"),
+                        ("max_pool3d_2x2_affine_act_bc", "pool"),
+                        ("avg_pool3d_2x2_affine_act", "pool")):
+        setattr(blocks, attr, _ranged(label, getattr(blocks, attr)))
+    batchnorm.ManualBN.forward = _ranged("BatchNorm statistics",
+                                         batchnorm.ManualBN.forward)
+    blocks.F = types.SimpleNamespace(**vars(blocks.F))
+    blocks.F.conv3d = _ranged("conv", blocks.F.conv3d)
+    steps._prep_inputs = _ranged("augmentation", steps._prep_inputs)
+    steps._ce_sums = _ranged("loss", steps._ce_sums)
+    for m in models:
+        for part in ("fuse_transformer", "fc_cls", "D"):
+            if hasattr(m, part):
+                mod = getattr(m, part)
+                mod.forward = _ranged(part, mod.forward)
+    state.optimizer.step = _ranged("optimizer", state.optimizer.step)
+
+
+def kernel_kind(name):
+    low = name.lower()
+    if "transmf" in low:
+        return "hand-written"
+    if any(k in low for k in ("cudnn", "xmma", "cutlass", "gemm", "sm90_",
+                              "nhwc", "convolve", "winograd", "fft")):
+        return "cuDNN / cuBLAS"
+    return "PyTorch"
+
+
+def _sites(e):
+    """the site ranges enclosing the profiler event e, innermost first"""
+    out = []
+    while e is not None:
+        if e.name.startswith(SITE):
+            out.append(e.name[len(SITE):])
+        e = e.cpu_parent
+    return out
+
+
+def _label(e):
+    """block / part, from the two innermost site ranges around e"""
+    s = _sites(e)
+    return " / ".join(reversed(s[:2])) if s else None
+
+
+def site_of(owner, made):
+    """The call site of a kernel launched inside the CPU event `owner`:
+    its own ranges, else (backward) the site of the forward op whose
+    autograd node encloses it. `made`: sequence number -> site of the
+    forward ops inside site ranges."""
+    lab, e = _label(owner), owner
+    while lab is None and e is not None:
+        if e.sequence_nr in made and "Backward" in e.name:
+            lab = made[e.sequence_nr] + " (backward)"
+        e = e.cpu_parent
+    return lab or "(no site)"
+
+
+def forward_sites(cpu_events):
+    """sequence number -> site of each forward op inside a site range
+    (the ops that made autograd nodes)"""
+    made = {}
+    for e in cpu_events:
+        if e.sequence_nr >= 0:
+            lab = _label(e)
+            if lab is not None:
+                made.setdefault(e.sequence_nr, lab)
+    return made
+
+
+def by_call_site(fn, what, n=3):
+    """Device ms per `what` by call site and kernel kind (n profiled
+    calls)."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    cpu = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    made = forward_sites(cpu)
+    table = collections.defaultdict(float)
+    # the profiler lists each device kernel under the innermost CPU event
+    # active at its launch
+    for e in cpu:
+        if e.kernels:
+            lab = site_of(e, made)
+            for k in e.kernels:
+                table[lab, kernel_kind(k.name)] += k.duration / 1e3 / n
+    total = sum(table.values())
+    sites_ms = collections.defaultdict(float)
+    for (lab, _), ms in table.items():
+        sites_ms[lab] += ms
+    print(f"device ms per {what} by call site ({n} profiled; total "
+          f"{total:.3f}): site, all, PyTorch, cuDNN / cuBLAS, hand-written")
+    for lab, ms in sorted(sites_ms.items(), key=lambda kv: -kv[1]):
+        parts = [table.get((lab, k), 0.0) for k in
+                 ("PyTorch", "cuDNN / cuBLAS", "hand-written")]
+        print(f"  {lab:58s} {ms:9.3f} {parts[0]:9.3f} {parts[1]:9.3f} "
+              f"{parts[2]:9.3f}")
+    kinds = collections.defaultdict(float)
+    for (_, k), ms in table.items():
+        kinds[k] += ms
+    print(f"  by kind: {dict((k, round(v, 3)) for k, v in kinds.items())}")
+
+
+label_call_sites([model] + ([serving_model] if args.serving else []), state)
+by_call_site(lambda: step(state, batch), "step")
+if args.serving:
+    by_call_site(lambda: infer(*host), "request")

@@ -674,3 +674,101 @@ def test_k3_k5_tensor_core_variants_on_cuda(cuda):
             _match(st, ref_st, "s", dtype, what + " sums")
             again = stem.stem_conv_stats(xd, wd)
             assert torch.equal(ys, again[0]) and torch.equal(st, again[1])
+
+
+def _k4_direct(y, s, b, slope, mode, lanes):
+    """K4's "direct" variant on `_affine_act_pool`'s arguments, launched as
+    chip_smoke does"""
+    bb, X, Y, Z, C = y.shape
+    out = torch.empty(bb, X // 2, Y // 2, Z // 2, C, dtype=y.dtype,
+                      device="cuda")
+    pool3d.AFFINE_ACT_POOL.launch(
+        y.device, y.data_ptr(), s.data_ptr(), b.data_ptr(), out.data_ptr(),
+        bb, X, Y, Z, C, C if lanes else 0, float(slope), pool3d._MODES[mode],
+        _build.DTYPE_CODES[y.dtype], 0, 0, variant="direct")
+    return out
+
+
+def _k7_direct(y, s, b, p, g, slope, mode, lanes, round_gi):
+    """K7's "direct" variant on `affine_act_pool_bwd`'s arguments"""
+    bb, X, Y, Z, C = y.shape
+    grid = pool3d.bwd_blocks("direct", y.dtype, bb, X, Y, Z, C)
+    dy = torch.empty_like(y)
+    part = torch.empty(2, grid, Z * C, device="cuda")
+    dsb = torch.empty(2, s.numel(), device="cuda")
+    pool3d.AFFINE_ACT_POOL_BWD.launch(
+        y.device, y.data_ptr(), s.data_ptr(), b.data_ptr(), p.data_ptr(),
+        g.data_ptr(), dy.data_ptr(), part.data_ptr(), dsb.data_ptr(), bb, X,
+        Y, Z, C, C if lanes else 0, float(slope), pool3d._MODES[mode],
+        int(round_gi), grid, _build.DTYPE_CODES[y.dtype], 0, 0,
+        variant="direct")
+    return dy, dsb
+
+
+@pytest.mark.cuda
+def test_k4_k7_vec_variants_on_cuda(cuda):
+    """K4 and K7 "vec" at small shapes against "direct" and the plain
+    version: odd tails, lanes and channels, max and mean, C 8, 16 and 32,
+    and a pooled row of two slices (392 bfloat16 lanes). K4's output and
+    K7's dy give the same bits in both variants and match the plain
+    version (exact in float32, one ulp in bfloat16); K7's float32 sums to
+    1e-5 of their largest magnitude; two K7 calls give the same bits; the
+    count per variant says which ran."""
+    def r(*s):
+        return torch.randn(*s, generator=cuda, device="cuda")
+
+    ref = pool3d.affine_act_pool_reference
+    for shape, lanes, mode in (((2, 5, 7, 9, 16), True, "max"),
+                               ((1, 6, 9, 7, 32), False, "max"),
+                               ((2, 5, 6, 5, 8), False, "avg"),
+                               ((1, 3, 4, 98, 64), True, "max")):
+        n = shape[3] * shape[4] if lanes else shape[4]
+        s, b = 1.0 + 0.5 * r(n), 0.3 * r(n)
+        round_gi = mode == "max" and lanes
+        for dtype in (torch.bfloat16, torch.float32):
+            assert pool3d.variant(dtype, shape[4]) == "vec"
+            y = r(*shape).to(dtype)
+            what = f"{mode} {'lanes' if lanes else 'chan'} {shape} {dtype}"
+            pool3d.AFFINE_ACT_POOL.reset()
+            out = pool3d._affine_act_pool("t", y, s, b, 0.01, mode, lanes)
+            direct = _k4_direct(y, s, b, 0.01, mode, lanes)
+            assert pool3d.AFFINE_ACT_POOL.by_variant == {"vec": 1,
+                                                         "direct": 1}
+            assert torch.equal(out, direct), what
+            _match(out, ref(y, s, b, 0.01, mode), "v", dtype, what)
+            gp = r(*out.shape).to(dtype)
+            args = (y, s, b, out, gp, 0.01, mode, lanes, round_gi)
+            pool3d.AFFINE_ACT_POOL_BWD.reset()
+            dy, dsb = pool3d.affine_act_pool_bwd(*args)
+            dy_d, dsb_d = _k7_direct(*args)
+            assert pool3d.AFFINE_ACT_POOL_BWD.by_variant == {"vec": 1,
+                                                             "direct": 1}
+            assert torch.equal(dy, dy_d), what
+            ref_dy, ref_dsb = pool3d.affine_act_pool_bwd_reference(
+                *args[:7], round_gi)
+            _match(dy, ref_dy, "v", dtype, what + " dy")
+            _match(dsb, ref_dsb, "s", dtype, what + " sums")
+            _match(dsb_d, ref_dsb, "s", dtype, what + " direct sums")
+            again = pool3d.affine_act_pool_bwd(*args)
+            assert torch.equal(dy, again[0]) and torch.equal(dsb, again[1])
+
+
+@pytest.mark.cuda
+def test_k4_k7_vec_misaligned_raises_on_cuda(cuda):
+    """"vec" needs 16-byte aligned tensors: a contiguous view two bytes
+    into its storage raises before anything launches; nothing falls back
+    to "direct"."""
+    shape = (2, 5, 6, 8, 32)
+    buf = torch.zeros(int(np.prod(shape)) + 1, device="cuda",
+                      dtype=torch.bfloat16)
+    y = buf[1:].view(shape)
+    s = torch.ones(32, device="cuda")
+    b = torch.zeros(32, device="cuda")
+    p = torch.zeros(2, 2, 3, 4, 32, device="cuda", dtype=torch.bfloat16)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        pool3d.max_pool3d_2x2_affine_act_bc(y, s, b)
+    with pytest.raises(ValueError, match="16-byte"):
+        pool3d.affine_act_pool_bwd(y, s, b, p, p, 0.01, "max", False, False)
+    assert pool3d.AFFINE_ACT_POOL.launches == 0
+    assert pool3d.AFFINE_ACT_POOL_BWD.launches == 0

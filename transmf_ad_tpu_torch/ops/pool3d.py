@@ -16,6 +16,14 @@ lane or per channel. `affine_act_pool_bwd_reference` is its plain version.
 All entries take and return channels-last (B, X, Y, Z, C) tensors; odd
 tails are dropped (floor semantics, torch MaxPool3d(2, 2)) and get zero
 gradient.
+
+K4 and K7 each have two variants, named by `variant(dtype, C)`: "vec"
+(16-byte groups of channels; a thread of K7 owns its lanes for the whole
+kernel) wherever a channel row is a whole number of 16-byte pieces, which
+holds for the models' widths in bfloat16 and float32, and "direct" (one
+thread per element or lane, 2- or 4-byte accesses) otherwise. The two give
+the same bits for K4 and for K7's dy; K7's float32 sums differ only in
+their order.
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ from .._build import FLOAT, INT, PTR, Kernel, check_cuda
 AFFINE_ACT_POOL = Kernel(
     name="affine_act_pool", entry="transmf_affine_act_pool",
     argtypes=(PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, FLOAT, INT,
-              INT),
+              INT, INT, INT),
     source="transmf_ad_tpu_torch/csrc/pool3d.cu",
     replaces="transmf_ad_tpu/ops/pool3d.py:484")
 
@@ -36,12 +44,55 @@ AFFINE_ACT_POOL = Kernel(
 AFFINE_ACT_POOL_BWD = Kernel(
     name="affine_act_pool_bwd", entry="transmf_affine_act_pool_bwd",
     argtypes=(PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT,
-              INT, FLOAT, INT, INT, INT, INT),
+              INT, FLOAT, INT, INT, INT, INT, INT, INT),
     source="transmf_ad_tpu_torch/csrc/pool3d.cu",
     replaces="transmf_ad_tpu/ops/pool3d.py:543")
 
 _MODES = {"max": 0, "avg": 1}
-_BWD_BLOCKS = 2 * 132  # K7 blocks: two 512-thread blocks per H100 SM
+VARIANTS = ("direct", "vec")  # K4's and K7's, by their code in C
+# K7's blocks of rows: two 512-thread blocks an H100 SM ("direct"), or two
+# waves of one ("vec": its shared-memory ring takes most of an SM)
+_BWD_BLOCKS = 2 * 132
+VEC_MAX_THREADS = 384  # lane threads of a "vec" block (kVecThreads in C)
+VEC_BYTES = 16
+
+
+def variant(dtype: torch.dtype, c: int) -> str:
+    """The K4 and K7 variant a CUDA launch takes, from the dtype and the
+    channel count alone: "vec" where a channel row is a whole number of
+    16-byte pieces (bfloat16 with C % 8 == 0, float32 with C % 4 == 0),
+    else "direct"."""
+    return "vec" if c % (VEC_BYTES // dtype.itemsize) == 0 else "direct"
+
+
+def vec_plan(dtype: torch.dtype, z: int, c: int) -> tuple[int, int]:
+    """(threads, slices) of a "vec" block: a pooled row has (Z // 2) * C /
+    (16 / itemsize) lanes, one a thread; up to VEC_MAX_THREADS lanes a
+    block take one block, rounded up to a warp, and a row with more is cut
+    into the fewest equal slices that fit, one block each."""
+    lanes = (z // 2) * (c // (VEC_BYTES // dtype.itemsize))
+    slices = -(-lanes // VEC_MAX_THREADS)
+    return 32 * -(-lanes // (32 * slices)), slices
+
+
+def bwd_blocks(which: str, dtype: torch.dtype, b: int, x: int, y: int,
+               z: int, c: int) -> int:
+    """K7's blocks of rows (the partials' rows): at most one per extended
+    pooled row (B, ceil(X/2), ceil(Y/2)), and 264 blocks in all ("vec":
+    264 over its slices)."""
+    rows = b * ((x + 1) // 2) * ((y + 1) // 2)
+    if which == "vec":
+        return min(rows, max(1, _BWD_BLOCKS // vec_plan(dtype, z, c)[1]))
+    return min(rows, _BWD_BLOCKS)
+
+
+def _check_aligned(name, *tensors):
+    """"vec" reads and writes 16-byte pieces: every pointer must be 16-byte
+    aligned. A misaligned one raises; nothing falls back to "direct"."""
+    for t in tensors:
+        if t.data_ptr() % VEC_BYTES:
+            raise ValueError(f"{name}: \"vec\" needs 16-byte aligned "
+                             f"tensors; one starts at {t.data_ptr():#x}")
 
 
 def _affine(scale, C):
@@ -123,6 +174,7 @@ def _check_volume(name, y):
 
 
 def _affine_act_pool(name, y, scale, shift, slope, mode, lanes):
+    """K4 on CUDA tensors, in the variant `variant` names."""
     if y.device.type == "cpu":
         return affine_act_pool_reference(y, scale, shift, slope, mode)
     dtype = check_cuda(name, y)
@@ -131,18 +183,23 @@ def _affine_act_pool(name, y, scale, shift, slope, mode, lanes):
     _check_affine(name, y, Z * C if lanes else C, scale, shift)
     out = torch.empty(b, X // 2, Y // 2, Z // 2, C, dtype=y.dtype,
                       device=y.device)
+    which = variant(y.dtype, C)
+    threads = 0
+    if which == "vec":
+        _check_aligned(name, y, scale, shift, out)
+        threads = vec_plan(y.dtype, Z, C)[0]
     AFFINE_ACT_POOL.launch(
         y.device, y.data_ptr(), scale.data_ptr(), shift.data_ptr(),
         out.data_ptr(), b, X, Y, Z, C, C if lanes else 0, float(slope),
-        _MODES[mode], dtype)
+        _MODES[mode], dtype, VARIANTS.index(which), threads, variant=which)
     return out
 
 
 def affine_act_pool_bwd(y, scale, shift, p, g, slope: float, mode: str,
                         lanes: bool, round_gi: bool):
     """(dy, (2, n) float32 [d(scale), d(shift)]) for the forward output p
-    and its gradient g. Kernel K7 on CUDA tensors; the plain version on
-    CPU tensors."""
+    and its gradient g. Kernel K7 on CUDA tensors, in the variant
+    `variant` names; the plain version on CPU tensors."""
     name = "affine_act_pool_bwd"
     if y.device.type == "cpu":
         return affine_act_pool_bwd_reference(y, scale, shift, p, g, slope,
@@ -157,16 +214,22 @@ def affine_act_pool_bwd(y, scale, shift, p, g, slope: float, mode: str,
     if tuple(p.shape) != pooled or tuple(g.shape) != pooled:
         raise ValueError(f"{name}: p {tuple(p.shape)}, g {tuple(g.shape)}; "
                          f"expected {pooled}")
-    grid = min(b * ((X + 1) // 2) * ((Y + 1) // 2), _BWD_BLOCKS)
+    which = variant(y.dtype, C)
+    grid = bwd_blocks(which, y.dtype, b, X, Y, Z, C)
     dy = torch.empty_like(y)
     partial = torch.empty(2, grid, Z * C, dtype=torch.float32,
                           device=y.device)
     dsb = torch.empty(2, n, dtype=torch.float32, device=y.device)
+    threads = 0
+    if which == "vec":
+        _check_aligned(name, y, scale, shift, p, g, dy, partial)
+        threads = vec_plan(y.dtype, Z, C)[0]
     AFFINE_ACT_POOL_BWD.launch(
         y.device, y.data_ptr(), scale.data_ptr(), shift.data_ptr(),
         p.data_ptr(), g.data_ptr(), dy.data_ptr(), partial.data_ptr(),
         dsb.data_ptr(), b, X, Y, Z, C, C if lanes else 0, float(slope),
-        _MODES[mode], int(round_gi), grid, dtype)
+        _MODES[mode], int(round_gi), grid, dtype, VARIANTS.index(which),
+        threads, variant=which)
     return dy, dsb
 
 
