@@ -40,7 +40,14 @@ before the final line:
             F.avg_pool3d and their backward); K5's y and sums, K6's dw and
             K7's dy and sums bit-identical over two calls on the same
             inputs, K4 "vec" and K7's dy bit-identical to "direct"; then K2
-            and K10 side by side at 1,573 and 3,146 keys
+            and K10 side by side at 1,573 and 3,146 keys. K1 ("cluster":
+            a thread-block cluster a batch row; "column" timed beside it)
+            at the fusion head of both resolutions, (8,150,128)x2 and
+            (6,1573,128)x2, bit-identical over two calls, with edge cases
+            of token count and width; its times are the card's alone
+            (queued behind a spin: `_queued_ms`), beside the launch floor
+            (an empty kernel) by the same method and by events around the
+            call
 4. serving  full-width ModelAd (dim 128, depth 3, 4 heads x 32, mlp 512) in
             bfloat16, random weights and BN statistics from a seeded
             torch.Generator, answers 6 batch-8 requests of 91x109x91
@@ -101,12 +108,29 @@ before the final line:
             its plain version on the model's own inputs, at phase 3's
             tolerances; the updates in bf16 against f32 are printed, not
             held (see `bf16_check`)
+13. learning check  the port of scripts/tpu_sanity_train.py through the
+            host data layer: a synthetic ADNI tree of 8 subjects a group at
+            91x109x91 on disk, ADCN (16 pairs) cached in bf16 by
+            VolumeSource and shuffled by Loader (batch 8); full-width
+            ModelAd trains 40 steps in bf16 with Adam 1e-4 and no
+            augmentation, and the mean ce_loss of its last epoch must be
+            under half that of its first; the same rule on the band route
+            and on transformer_res with the flash gate lowered, each on the
+            script's fixed batch at phase 12's volumes; then the eval step
+            over the 16 pairs in batches of 6, the last padded and masked:
+            total 16, K1 launched, acc / sen / spe / f1 / AUC printed; then
+            the eval step on the card (f32) against the CPU plain path:
+            probs within 1e-4, counts equal. From phase 4 on every K1
+            launch is "cluster" (asserted) and every launch takes the
+            variant its rule names
 
 The line before the last is a JSON object with one entry per kernel: `ms`,
 `plain_ms`, `bound_ms`, `bound_by` and `library_ms` belong to the bfloat16
-run at the first shape listed for the kernel, `max_abs_err` is the largest
-over all its cases, `launches` its count over the six serving and train
-runs together, each counted from zero. Before it a `[time]` line gives the
+run at the first shape listed for the kernel (K1's full-resolution case is
+under `full_resolution`, its launch floor under `launch_floor_ms`),
+`max_abs_err` is the largest over all its cases, `launches` its count over
+the six serving and train runs and the learning check together, each
+counted from zero. Before it a `[time]` line gives the
 seconds each group of phases took. The last line is
 {"ok": true, "device": {...}}.
 
@@ -152,6 +176,9 @@ FLASH_SHAPE = (6, 4, 1573, 32, 3146)  # batch, heads, queries, head dim, keys
 # relative CHECK_EPS (a few float32 ulps), and the weight of their spread
 CHECK_DRAWS, CHECK_EPS, CHECK_SLACK = 4, 1e-6, 3.0
 BF16_RTOL = 2.0 ** -7  # one bfloat16 ulp, relative
+SPIN_CYCLES = 400_000  # `_queued_ms`'s spin: ~0.2 ms at the H100's clock
+# phase 13, scripts/tpu_sanity_train.py's steps and batch; the eval batch
+LEARN_STEPS, LEARN_BATCH, EVAL_BATCH = 40, 8, 6
 SERVING_KERNELS = ("token_pool", "attention_fwd", "stem_conv",
                    "affine_act_pool")
 TRAIN_KERNELS = ("token_pool", "attention_fwd", "affine_act_pool",
@@ -166,13 +193,14 @@ RES_TRAIN_KERNELS = ("affine_act_pool", "stem_conv_stats", "stem_dw",
                      "affine_act_pool_bwd", "band_conv", "band_dw",
                      "flash_fwd", "flash_dq", "flash_dkv")
 ATTENTION_CALLS = 6  # per forward: depth 3, one per modality
-# the variant every launch of K2-K12 must take on the bfloat16 paths at the
-# models' widths: the tensor cores ("mma"), and K4 / K7's 16-byte groups
-# ("vec")
+# the variant every launch of K1-K12 must take on the bfloat16 paths at the
+# models' widths: the tensor cores ("mma"), K4 / K7's 16-byte groups
+# ("vec") and K1's clusters
 FAST = {"attention_fwd": "mma", "band_conv": "mma", "band_dw": "mma",
         "flash_fwd": "mma", "flash_dq": "mma", "flash_dkv": "mma",
         "stem_conv": "mma", "stem_conv_stats": "mma", "stem_dw": "mma",
-        "affine_act_pool": "vec", "affine_act_pool_bwd": "vec"}
+        "affine_act_pool": "vec", "affine_act_pool_bwd": "vec",
+        "token_pool": "cluster"}
 
 
 def _median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -201,6 +229,40 @@ def _median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def _queued_ms(fn, iters: int = 20) -> float:
+    """Median CUDA-event time of `fn` with its launches queued behind a
+    0.2 ms spin of the card (`torch.cuda._sleep`), so that the host's work
+    to launch them overlaps the spin: the card's time alone, where
+    `_median_ms` also counts the host's time to reach the launch while the
+    card waits."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _host_us(fn, calls: int = 200) -> float:
+    """The host's microseconds a call of `fn`, launches enqueued and not
+    waited for (the card drains them after the clock stops)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    spent = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * spent / calls
 
 
 def _randn(g, *shape, scale=1.0):
@@ -263,6 +325,13 @@ class Case:
     # the positions of arguments the function never reads (K7's mean
     # backward: p), left out of the bound's bytes
     unread: tuple = ()
+    # a second timed shape of the kernel that the result line gives under
+    # this key of its entry (K1's full-resolution case)
+    record: str = None
+    # time with `_queued_ms` (the card alone) where the host's time to reach
+    # the launch is of the kernel's order (K1), and print `_median_ms`'s
+    # times and the launch floor beside
+    queued: bool = False
 
 
 def _by_sample(plain, batched, summed=()):
@@ -442,6 +511,21 @@ def _kernel_cases(g):
                  earlier_name="direct",
                  twin=lambda *args: k7_dir(*args)[0],
                  library_bwd=identity, unread=(3,) if mode == "avg" else ())]
+
+    def tokens(b, n, d):
+        def make(dt):
+            return _randn(g, b, n, d).to(dt), _randn(g, b, n, d).to(dt)
+        return make
+
+    def token_column(mri, pet):
+        """K1's "column" variant, whatever the shape"""
+        b, n, d = mri.shape
+        out = torch.empty(b, 4 * d, dtype=mri.dtype, device="cuda")
+        pooling.TOKEN_POOL.launch(mri.device, mri.data_ptr(), pet.data_ptr(),
+                                  out.data_ptr(), b, n, d,
+                                  _build.DTYPE_CODES[mri.dtype], 0,
+                                  variant="column")
+        return out
 
     def stem_in(b, volume, c=32):
         def make(dt):
@@ -702,10 +786,15 @@ def _kernel_cases(g):
     band_fwd = functools.partial(band_conv._band_forward, stats=False)
     band_fwd_stats = functools.partial(band_conv._band_forward, stats=True)
     cases = [
-        Case("token_pool", "(8,150,128)x2", pooling.fused_token_pool,
-             pooling.pool_reference,
-             lambda dt: (_randn(g, 8, 150, 128).to(dt),
-                         _randn(g, 8, 150, 128).to(dt)), *sums, token_ops),
+        # K1 at the fusion head of a 91x109x91 request (150 tokens) and of a
+        # 182x218x182 one (11 x 13 x 11 = 1,573 tokens, batch 6), "column"
+        # timed beside "cluster"
+        *(Case("token_pool", f"({b},{n},128)x2", pooling.fused_token_pool,
+               pooling.pool_reference, tokens(b, n, 128), *sums, token_ops,
+               earlier=token_column, repeat=True, earlier_name="column",
+               record=record, queued=True)
+          for b, n, record in ((BATCH, 150, None),
+                               (FULL_BATCH, 1573, "full_resolution"))),
         Case("attention_fwd", "(32,150,32)", fused_attention,
              attention_reference, attn(8, 4, 150, 32), *sums, attn_ops,
              lib_attn, attn_rows),
@@ -854,6 +943,19 @@ def _kernel_cases(g):
         cases += pool_cases(f"{mode} identity entry (1,5,7,9,16)",
                             (1, 5, 7, 9, 16), False, False, mode,
                             identity=True)
+    # edge cases of K1, each in the variant its rule names and bit for bit
+    # over two calls: an odd token count (a short last chunk), one token,
+    # fewer tokens than a block's rows (one block a cluster), D 32 and 48
+    # ("cluster"; 48 with a partly idle block), D 12 ("column" in bfloat16,
+    # "cluster" in float32), D 6 ("column"), 256 pieces a row (one row a
+    # block) and 257 ("column")
+    for b, n, d in ((3, 157, 128), (2, 1, 128), (2, 9, 128), (4, 150, 32),
+                    (2, 157, 48), (2, 33, 12), (2, 20, 6), (1, 40, 2048),
+                    (1, 12, 2056)):
+        cases.append(Case("token_pool", f"({b},{n},{d})x2",
+                          pooling.fused_token_pool, pooling.pool_reference,
+                          tokens(b, n, d), *sums, token_ops, timed=False,
+                          repeat=True))
     # edge cases of K2 "mma" (float32 takes "rows"): one query, one key, a
     # partial first chunk, keys and queries one below, at and one above a
     # chunk and a block, every head dim; then the full-resolution path's
@@ -995,6 +1097,25 @@ def _bound(case, args, outs, tag):
         "operations"
 
 
+def launch_floor() -> dict:
+    """The median CUDA-event time of an empty kernel (one block of 32
+    threads) queued behind a spin (`_queued_ms`) and with events around the
+    call (`_median_ms`), and the host's microseconds a launch: what a
+    launch-bound kernel's time is read against."""
+    from transmf_ad_tpu_torch import _build
+
+    lib = _build.library()
+    lib.transmf_empty.argtypes = [_build.PTR]
+    lib.transmf_empty.restype = _build.INT
+
+    def empty():
+        err = lib.transmf_empty(torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"empty kernel: launch failed ({err})")
+    return {"queued": _queued_ms(empty, iters=50),
+            "events": _median_ms(empty, iters=50), "host_us": _host_us(empty)}
+
+
 def check_kernels(results, only=()):
     """Phase 3. Fills `results` per kernel name and returns the bfloat16
     kernel time of every case by (name, label)."""
@@ -1003,6 +1124,11 @@ def check_kernels(results, only=()):
     g = torch.Generator(device="cuda").manual_seed(1)
     times = {}
     by_name = {k.name: k for k in KERNELS}
+    floor = launch_floor()
+    print(f"[kernel] launch floor, an empty kernel: queued behind a spin "
+          f"{floor['queued']:.4f} ms, events around the call "
+          f"{floor['events']:.4f} ms, host {floor['host_us']:.1f} us a call",
+          flush=True)
     for case in _kernel_cases(g):
         name, label = case.name, case.label
         if only and name not in only:
@@ -1054,14 +1180,15 @@ def check_kernels(results, only=()):
                 raise AssertionError(f"{name} {label} {tag} disagrees with "
                                      f"its plain version: {errs}")
             if case.timed:
-                ms = _median_ms(lambda: case.kern(*args))
-                plain_ms = _median_ms(lambda: case.plain(*args))
+                timer = _queued_ms if case.queued else _median_ms
+                ms = timer(lambda: case.kern(*args))
+                plain_ms = timer(lambda: case.plain(*args))
                 if case.library is None:
                     library_ms = None
                 elif case.library_bwd:
-                    library_ms = _median_ms(case.library(*args))
+                    library_ms = timer(case.library(*args))
                 else:
-                    library_ms = _median_ms(lambda: case.library(*args))
+                    library_ms = timer(lambda: case.library(*args))
                 lib_s = ("none" if library_ms is None
                          else f"{library_ms:.4f} ms")
                 line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -1069,12 +1196,26 @@ def check_kernels(results, only=()):
                          f"call {lib_s}")
                 if case.library_part is not None:
                     part, what = case.library_part(*args)
-                    line += f", {what} {_median_ms(part):.4f} ms"
+                    line += f", {what} {timer(part):.4f} ms"
                     del part
                 if case.earlier is not None and dt == torch.bfloat16:
-                    was = _median_ms(lambda: case.earlier(*args))
+                    was = timer(lambda: case.earlier(*args))
                     line += (f", {case.earlier_name} {was:.4f} ms "
                              f"({was / ms:.1f}x)")
+                if case.queued:
+                    # the same calls timed as the other kernels are, and the
+                    # host's time a call of the public entry
+                    line += (f"; queued behind a spin, launch floor "
+                             f"{floor['queued']:.4f} ms; events around the "
+                             f"call (host included): kernel "
+                             f"{_median_ms(lambda: case.kern(*args)):.4f} ms")
+                    if case.earlier is not None:
+                        line += (f", {case.earlier_name} "
+                                 f"{_median_ms(lambda: case.earlier(*args)):.4f}"
+                                 f" ms")
+                    line += (f", launch floor {floor['events']:.4f} ms; host "
+                             f"{_host_us(lambda: case.kern(*args)):.1f} us a "
+                             f"call (empty kernel {floor['host_us']:.1f})")
             else:
                 line += "; an edge case, not timed"
             print(line, flush=True)
@@ -1082,9 +1223,17 @@ def check_kernels(results, only=()):
             r["max_abs_err"] = max(r["max_abs_err"], *errs)
             if dt == torch.bfloat16 and case.timed:
                 times[name, label] = ms
+                timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, library_ms=library_ms)
+                if case.earlier is not None:
+                    timing.update(earlier=case.earlier_name, earlier_ms=was)
                 if "ms" not in r:  # main-path shape
-                    r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, library_ms=library_ms)
+                    r.update(timing)
+                elif case.record is not None:
+                    r[case.record] = {"shape": label, **timing}
+                if case.queued:
+                    r["launch_floor_ms"] = floor["queued"]
+                    r["launch_floor_events_ms"] = floor["events"]
             del args, outs
             torch.cuda.empty_cache()
     return times
@@ -1137,7 +1286,6 @@ def serve(card, tag="serving", batch=BATCH, volume=VOLUME, warmup=WARMUP,
     counts per request that must hold exactly. `variants`: the one variant
     each of these kernels may have launched."""
     from transmf_ad_tpu_torch.models import build_model
-    from transmf_ad_tpu_torch.ops import reset_launch_counts
     from transmf_ad_tpu_torch.serving import make_inference_fn
     from transmf_ad_tpu_torch.utils.weights import init_weights
 
@@ -1151,7 +1299,7 @@ def serve(card, tag="serving", batch=BATCH, volume=VOLUME, warmup=WARMUP,
     requests = [tuple(rng.standard_normal((batch, *volume), dtype=np.float32)
                       for _ in range(2)) for _ in range(n_requests)]
 
-    reset_launch_counts()
+    reset_counts()
     times = []
     for mri, pet in requests:
         t0 = time.perf_counter()
@@ -1242,6 +1390,18 @@ def flash_cross_check(reference):
                              "every attention call")
 
 
+def reset_counts():
+    """Set every launch count to 0, after checking that K1 launched no
+    "column" since the last reset: from phase 4 on, every K1 launch is at
+    the models' width, which the rule sends to "cluster"."""
+    from transmf_ad_tpu_torch.ops import TOKEN_POOL, reset_launch_counts
+
+    if TOKEN_POOL.by_variant.get("column"):
+        raise AssertionError(f"K1 launched {TOKEN_POOL.by_variant} at the "
+                             "models' width, expected only \"cluster\"")
+    reset_launch_counts()
+
+
 def _launches():
     from transmf_ad_tpu_torch.ops import KERNELS
 
@@ -1277,7 +1437,6 @@ def train(card, tag="train", batch_size=BATCH, volume=VOLUME,
     one variant each of these kernels may have launched."""
     from transmf_ad_tpu_torch.data.transforms import AugmentConfig
     from transmf_ad_tpu_torch.models import ADVERSARIAL, build_model
-    from transmf_ad_tpu_torch.ops import reset_launch_counts
     from transmf_ad_tpu_torch.train import create_state, make_train_step
     from transmf_ad_tpu_torch.utils.weights import init_weights
 
@@ -1301,7 +1460,7 @@ def train(card, tag="train", batch_size=BATCH, volume=VOLUME,
     before = _snapshot(model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
+    reset_counts()
     times, losses = [], []
     for batch in batches:
         t0 = time.perf_counter()
@@ -1591,7 +1750,6 @@ def bf16_check(model_name="ad", volume=CHECK_VOLUME, **model_kw):
     take the tensor cores and K4 / K7 "vec" wherever the variant rules
     send them (asserted)."""
     from transmf_ad_tpu_torch.models import ADVERSARIAL, build_model
-    from transmf_ad_tpu_torch.ops import reset_launch_counts
     from transmf_ad_tpu_torch.utils.weights import init_weights
 
     tag = " ".join(["bf16 check", *([model_name] if model_name != "ad"
@@ -1609,7 +1767,7 @@ def bf16_check(model_name="ad", volume=CHECK_VOLUME, **model_kw):
     runs, steps, held = {}, {}, {}
     for device, dt in (("cuda", torch.bfloat16), ("cuda", torch.float32),
                        ("cpu", torch.bfloat16), ("cpu", torch.float32)):
-        reset_launch_counts()
+        reset_counts()
         with (flash_gate(FLASH_CHECK_GATE) if flash
               else contextlib.nullcontext()):
             m = copy.deepcopy(model).to(device).eval()
@@ -1682,6 +1840,229 @@ def bf16_check(model_name="ad", volume=CHECK_VOLUME, **model_kw):
           f"variants {took}", flush=True)
 
 
+def _epoch_rule(tag, losses, per_epoch):
+    """The learning check's rule (scripts/tpu_sanity_train.py's, over
+    epochs): the mean ce_loss of the last epoch is under half that of the
+    first. Returns the two means."""
+    first = float(np.mean(losses[:per_epoch]))
+    last = float(np.mean(losses[-per_epoch:]))
+    if not (np.isfinite(losses).all() and last < 0.5 * first):
+        raise AssertionError(f"{tag}: no learning, epoch-mean ce_loss "
+                             f"{first:.4f} -> {last:.4f}: {losses}")
+    return first, last
+
+
+def sanity_batch(seed, volume, batch=LEARN_BATCH):
+    """scripts/tpu_sanity_train.py's fixed batch: labels alternate, the
+    class shifts the volume's mean by 0.3, PET is MRI flipped along x"""
+    rng = np.random.default_rng(seed)
+    labels = np.array([0, 1] * (batch // 2), np.int32)
+    vols = rng.standard_normal((batch, *volume)).astype(np.float32)
+    vols += labels[:, None, None, None] * 0.3
+    return {"MRI": torch.from_numpy(vols),
+            "PET": torch.from_numpy(vols[:, ::-1].copy()),
+            "label": torch.from_numpy(labels)}
+
+
+def _learn(tag, model, batches, adversarial, variants, flash=False):
+    """LEARN_STEPS Adam 1e-4 steps in bfloat16 over `batches` (a list of
+    one epoch's batches, or a callable giving the next epoch's), no
+    augmentation; the epoch rule on ce_loss; every launch in the variant
+    `variants` names. Returns the launch counts and the train state."""
+    from transmf_ad_tpu_torch.train import create_state, make_train_step
+
+    state = create_state(model, "cuda", torch.bfloat16, seed=0, name="Adam",
+                         lr=1e-4, milestones=())
+    step = make_train_step(adversarial=adversarial)
+    epoch = batches if callable(batches) else (lambda: batches)
+    reset_counts()
+    losses, per_epoch = [], None
+    with flash_gate(FLASH_CHECK_GATE) if flash else contextlib.nullcontext():
+        while len(losses) < LEARN_STEPS:
+            todo = list(epoch())
+            per_epoch = per_epoch or len(todo)
+            for batch in todo[:LEARN_STEPS - len(losses)]:
+                losses.append(float(step(state, batch)["ce_loss"]))
+    launches = _launches()
+    took = _require_variants(tag, variants)
+    first, last = _epoch_rule(tag, losses, per_epoch)
+    print(f"[{tag}] {LEARN_STEPS} steps, {per_epoch} a epoch, bf16, Adam "
+          f"1e-4: epoch-mean ce_loss {first:.4f} -> {last:.4f} (rule: under "
+          f"half); ce_loss by step {[round(v, 4) for v in losses]}; launches "
+          f"{launches}, variants {took}", flush=True)
+    return launches, state
+
+
+def learning_check(card):
+    """Phase 13, the port of scripts/tpu_sanity_train.py, through the host
+    data layer and the eval step: (a) a synthetic ADNI tree at 91x109x91
+    (8 subjects a group) on disk, indexed for ADCN (16 pairs), cached in
+    bfloat16 by `VolumeSource` and shuffled by `Loader` (batch 8); (b)
+    full-width ModelAd learns on it (`_learn`), and so do the band route
+    and transformer_res with the flash gate lowered on the script's fixed
+    batch at phase 12's volumes; (c) the eval step over the 16 pairs in
+    batches of 6, the last padded by `pad_batch` and masked, counts 16
+    and launches K1; (d) `eval_check`."""
+    import tempfile
+
+    from transmf_ad_tpu_torch.data import (ADNI, Loader, VolumeSource,
+                                           make_synthetic_adni, native_loader,
+                                           pad_batch)
+    from transmf_ad_tpu_torch.models import build_model
+    from transmf_ad_tpu_torch.ops import KERNELS
+    from transmf_ad_tpu_torch.train import (MetricState, confusion_metrics,
+                                            make_eval_step, roc_auc)
+    from transmf_ad_tpu_torch.utils.weights import init_weights
+
+    kernels = {k.name: k for k in KERNELS}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        make_synthetic_adni(root, n_per_group=8, shape=VOLUME, seed=0)
+        made = time.perf_counter() - t0
+        records = ADNI(root, task="ADCN").data_dict
+        if len(records) != 16:
+            raise AssertionError(f"ADCN indexed {len(records)} pairs, not 16")
+        source = VolumeSource(records, dtype=torch.bfloat16)
+        loader = Loader(source, batch_size=LEARN_BATCH, shuffle=True, seed=0)
+        t0 = time.perf_counter()
+        cached = next(iter(Loader(source, batch_size=len(records))))
+        print(f"[learning] synthetic ADNI, {len(records)} ADCN pairs at "
+              f"{VOLUME}: written in {made:.1f} s, decoded and cached in "
+              f"bf16 in {time.perf_counter() - t0:.1f} s by the "
+              f"{'native' if source.use_native else 'pure-Python'} decoder "
+              f"(native_loader.available() = {native_loader.available()}); "
+              f"a batch's MRI {cached['MRI'].dtype} "
+              f"{tuple(cached['MRI'].shape)}", flush=True)
+        g = torch.Generator().manual_seed(13)
+        model = build_model("ad")
+        init_weights(model, g)
+        learned, state = _learn("learning, ModelAd, synthetic ADNI", model,
+                                lambda: iter(loader), True, FAST)
+
+        # (c) the eval step over all 16 pairs, the last batch padded
+        step = make_eval_step(adversarial=True)
+        reset_counts()
+        metrics, probs, labels = MetricState.zero("cuda"), [], []
+        batches = 0
+        for batch in Loader(source, batch_size=EVAL_BATCH):
+            n = batch["label"].shape[0]
+            batch = pad_batch(batch, EVAL_BATCH)
+            metrics, out = step(state, metrics, batch)
+            keep = out["mask"].bool()
+            probs.append(out["probs"][keep].cpu())
+            labels.append(out["label"][keep].cpu())
+            batches += 1
+            if n < EVAL_BATCH and out["mask"].sum() != n:
+                raise AssertionError("the padded batch's mask is wrong")
+        evaluated = _launches()
+        took = _require_variants("learning, eval", FAST)
+        total = float(metrics.total)
+        if total != len(records) or batches != 3:
+            raise AssertionError(f"the eval step counted {total} samples in "
+                                 f"{batches} batches, not 16 in 3")
+        if evaluated["token_pool"] != batches:
+            raise AssertionError(f"the eval step launched K1 "
+                                 f"{evaluated['token_pool']} times, not "
+                                 f"{batches}")
+        scores = confusion_metrics(metrics.confusion.cpu().numpy())
+        auc = roc_auc(torch.cat(probs).numpy(), torch.cat(labels).numpy())
+        print(f"[learning, eval] ModelAd after {LEARN_STEPS} steps, bf16, "
+              f"{batches} batches of {EVAL_BATCH} (the last 4 pairs padded "
+              f"and masked): total {total:.0f}, acc "
+              f"{float(metrics.correct) / total:.4f}, sen {scores['sen']:.4f},"
+              f" spe {scores['spe']:.4f}, f1 {scores['f1']:.4f}, AUC "
+              f"{auc:.4f}, loss {float(metrics.loss_sum) / total:.4f} "
+              f"(printed, not held); launches {evaluated}, variants {took}",
+              flush=True)
+    del state, model
+    torch.cuda.empty_cache()
+
+    g = torch.Generator().manual_seed(14)
+    band = build_model("ad", band_min_voxels=0)
+    init_weights(band, g)
+    fast = {k: v for k, v in FAST.items() if not k.startswith("band_")}
+    band_run, _ = _learn("learning, ModelAd, band route", band,
+                         [sanity_batch(15, CHECK_VOLUME)], True, fast)
+    want = {name: {which: c * LEARN_STEPS for which, c in n.items()}
+            for name, n in _band_route_variants(True).items()}
+    got = {k: dict(kernels[k].by_variant) for k in want}
+    if got != want:
+        raise AssertionError(f"learning, band route: K8 / K9 variants {got}, "
+                             f"the rules give {want}")
+    g = torch.Generator().manual_seed(16)
+    res = build_model("transformer_res")
+    init_weights(res, g)
+    res_run, _ = _learn("learning, transformer_res, flash route", res,
+                        [sanity_batch(17, RES_CHECK_VOLUME)], False, FAST,
+                        flash=True)
+    if not all(res_run[k] == ATTENTION_CALLS * LEARN_STEPS
+               for k in ("flash_fwd", "flash_dq", "flash_dkv")):
+        raise AssertionError(f"learning, transformer_res: the flash route "
+                             f"was not taken: {res_run}")
+    eval_check()
+    return {n: learned[n] + evaluated[n] + band_run[n] + res_run[n]
+            for n in learned}
+
+
+def eval_check():
+    """Phase 13 (d): the eval step on the card (float32, TF32 off) against
+    the CPU plain path, with the same weights (phase 7's kind: seeded,
+    random BN statistics) at CHECK_VOLUME, on 3 real samples padded to 4
+    and masked: probs within 1e-4, loss_sum within 1e-4 of its magnitude,
+    correct, total and confusion equal. A sample whose two logits lie
+    within 1e-4 of each other may be classed either way by float32
+    rounding: it is reported and masked out of the comparison of the
+    counts."""
+    from transmf_ad_tpu_torch.data import pad_batch
+    from transmf_ad_tpu_torch.models import build_model
+    from transmf_ad_tpu_torch.train import (MetricState, create_state,
+                                            make_eval_step)
+    from transmf_ad_tpu_torch.utils.weights import init_weights
+
+    g = torch.Generator().manual_seed(18)
+    model = build_model("ad", head_dropout=0.0)
+    init_weights(model, g)
+    randomize_bn(model, g)
+    real = check_batch(19)
+    batch = pad_batch({k: v[:3].numpy() for k, v in real.items()},
+                      CHECK_BATCH)
+    with torch.inference_mode():
+        logits = model(*(torch.from_numpy(batch[k])[..., None]
+                         for k in ("MRI", "PET")), train=False)[0]
+    ties = ((logits[:, 1] - logits[:, 0]).abs() < 1e-4) \
+        & torch.from_numpy(batch["mask"]).bool()
+    if bool(ties.any()):
+        batch["mask"] = batch["mask"] * (~ties).float().numpy()
+    step = make_eval_step(adversarial=True)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        state = create_state(copy.deepcopy(model), device, torch.float32)
+        before = _launches()["token_pool"]
+        m, out = step(state, MetricState.zero(device), batch)
+        if device == "cuda" and _launches()["token_pool"] != before + 1:
+            raise AssertionError("eval check: K1 not launched on the card")
+        runs[device] = (m, {k: v.cpu() for k, v in out.items()})
+    (cm, cout), (pm, pout) = runs["cuda"], runs["cpu"]
+    perr = float((cout["probs"] - pout["probs"]).abs().max())
+    lerr = abs(float(cm.loss_sum) - float(pm.loss_sum))
+    ltol = 1e-4 * abs(float(pm.loss_sum))
+    if not (perr <= 1e-4 and lerr <= ltol):
+        raise AssertionError(f"eval check: probs differ by {perr} (tol "
+                             f"1e-4), loss_sum by {lerr} (tol {ltol})")
+    for f in ("correct", "total", "confusion", "batches"):
+        if not torch.equal(getattr(cm, f).cpu(), getattr(pm, f)):
+            raise AssertionError(f"eval check: {f} card {getattr(cm, f)} "
+                                 f"vs cpu {getattr(pm, f)}")
+    print(f"[eval check] the eval step, full width, 3 samples padded to "
+          f"{CHECK_BATCH} x {CHECK_VOLUME}, card f32 vs cpu f32: probs "
+          f"max_abs_err {perr:.3g} (tol 1e-4), loss_sum {float(cm.loss_sum):.6f}"
+          f" vs {float(pm.loss_sum):.6f} (err {lerr:.3g}, tol {ltol:.3g}); "
+          f"correct {float(cm.correct):.0f}, total {float(cm.total):.0f}, "
+          f"confusion {cm.confusion.cpu().tolist()} equal; samples within "
+          f"1e-4 of a tie (masked out of the counts): "
+          f"{ties.nonzero().flatten().tolist()}", flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", nargs="+", default=(), metavar="KERNEL",
@@ -1704,7 +2085,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from transmf_ad_tpu_torch import _build
-    from transmf_ad_tpu_torch.ops import KERNELS
+    from transmf_ad_tpu_torch.ops import KERNELS, reset_launch_counts
 
     laps = [("start", time.perf_counter())]
 
@@ -1722,9 +2103,10 @@ def main(argv=None) -> int:
 
     results: dict = {}
     times = check_kernels(results, only)
+    reset_launch_counts()  # phase 3 launched "column" on purpose
     lap("kernel checks")
     if only:
-        print(f"chip_smoke: --only {' '.join(only)}: phases 4-11 not run, "
+        print(f"chip_smoke: --only {' '.join(only)}: phases 4-13 not run, "
               "no result", flush=True)
         return 0
     side = {f"{name} at {keys} keys": round(times[name, label], 4)
@@ -1778,11 +2160,15 @@ def main(argv=None) -> int:
     bf16_check(band_min_voxels=0)
     bf16_check("transformer_res", RES_CHECK_VOLUME)
     lap("bf16 checks")
+    learned = learning_check(card)
+    reset_counts()
+    lap("learning check")
     runs = {"serving": serving, "train": trained,
             "serving, full resolution": full_serving,
             "train, full resolution": full_trained,
             tag: res_serving,
-            "train, full resolution, transformer_res": res_trained}
+            "train, full resolution, transformer_res": res_trained,
+            "learning check": learned}
     print(f"[launches] {runs}", flush=True)
     spent = ", ".join(f"{name} {t - t_before:.1f}" for (_, t_before), (name, t)
                       in zip(laps, laps[1:]))

@@ -21,6 +21,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 
@@ -121,3 +122,25 @@ def augment(vols, params, cfg: AugmentConfig = AugmentConfig()):
         return dict(vols)
     return {k: _affine_resample(v, *params, cfg.flip_axis)
             for k, v in vols.items()}
+
+
+def spatial_pad(vol, target_shape):
+    """Center-pad a numpy array or a tensor to `target_shape` with zeros.
+
+    Port of transmf_ad_tpu/data/transforms.py::spatial_pad, after MONAI
+    SpatialPadd (reference: datasets/ADNI.py:93,122): symmetric padding, the
+    extra voxel on the trailing side when the difference is odd. Never crops
+    (a target dim smaller than the volume's leaves it unchanged); a volume
+    that needs no padding is returned as it is.
+    """
+    pads = []
+    for s, t in zip(vol.shape, target_shape):
+        d = max(t - s, 0)
+        pads.append((d // 2, d - d // 2))
+    if all(p == (0, 0) for p in pads):
+        return vol
+    if isinstance(vol, torch.Tensor):
+        # F.pad takes (before, after) pairs from the last dim backwards
+        flat = [n for p in reversed(pads) for n in p]
+        return torch.nn.functional.pad(vol, flat)
+    return np.pad(vol, pads)

@@ -5,8 +5,10 @@ JAX step is one jitted program; here the same work runs eagerly on the
 model's device: dequantize and augment the batch, forward with BatchNorm
 statistic updates and dropout, the triple loss (CE + the mean of the two
 discriminator CEs, with masked sums), backward, the optimizer step and the
-scheduler step. The multi-device (`mesh`) form, buffer donation and the eval
-step are still to port (ROADMAP.md Queue 1 items 4 and 8).
+scheduler step. `make_eval_step` is the port of its eval step: the
+deterministic forward, the per-sample cross-entropy and the masked metric
+accumulation. The multi-device (`mesh`) forms and buffer donation are still
+to port (ROADMAP.md Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from torch import nn
 from ..data.transforms import AugmentConfig, augment, draw_params
 from ..nn.losses import cross_entropy
 from ..serving import resolve_dtype
+from .metrics import MetricState
 from .optim import build_optimizer
 
 
@@ -149,5 +152,42 @@ def make_train_step(modalities: Sequence[str] = ("MRI", "PET"),
         aux["mask"] = (mask if mask is not None
                        else torch.ones(labels.shape[0], device=device))
         return aux
+
+    return step
+
+
+def make_eval_step(modalities: Sequence[str] = ("MRI", "PET"),
+                   adversarial: bool = True):
+    """Returns step(state, metrics, batch) -> (metrics, out): the eval
+    forward (train=False) under `torch.inference_mode()` in `state.dtype`,
+    its inputs prepared as the train step prepares them without
+    augmentation, and the cross-entropy per sample (the reference's val /
+    test loss leaves the adversarial term out, reference:
+    kfold_train_adversarial.py:157-160). Accuracy, loss and the confusion
+    matrix accumulate on the model's device in `metrics` (a `MetricState`);
+    the batch may carry a 'mask' (B,) of real samples, so a ragged last
+    batch can be padded (`data.pipeline.pad_batch`). `out` holds the
+    per-sample `probs` (the positive class's softmax probability, in
+    float32), `label` and `mask`, for the exact ROC-AUC at epoch end."""
+    modalities = tuple(modalities)
+
+    @torch.inference_mode()
+    def step(state: TrainState, metrics: MetricState, batch):
+        model = state.model
+        device = next(model.parameters()).device
+        inputs = _prep_inputs(batch, modalities, None, None, device,
+                              state.dtype)
+        out = model(*inputs, train=False)
+        logits = out[0] if adversarial else out
+        labels = torch.as_tensor(batch["label"]).to(device).long()
+        mask = batch.get("mask")
+        if mask is not None:
+            mask = torch.as_tensor(mask, dtype=torch.float32).to(device)
+        nll = cross_entropy(logits, labels, reduce=False)
+        probs = torch.softmax(logits.float(), dim=-1)[:, -1]
+        metrics = metrics.update(logits, labels, nll, mask)
+        if mask is None:
+            mask = torch.ones(labels.shape[0], device=device)
+        return metrics, {"probs": probs, "label": labels, "mask": mask}
 
     return step
