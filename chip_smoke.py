@@ -123,14 +123,35 @@ before the final line:
             probs within 1e-4, counts equal. From phase 4 on every K1
             launch is "cluster" (asserted) and every launch takes the
             variant its rule names
+14. k-fold   the port's normal entry point: a synthetic ADNI tree of 40
+            ADCN pairs (20 a class) at 91x109x91 in $TMPDIR, then
+            `cli/kfold_train_adversarial.py`'s `main` in this process with
+            the reference README's flags: full-width ModelAd in bfloat16,
+            batch 8, augmentation on, 5 folds of 1 + 1 epochs. Held: 5 fold
+            result lines and the mean +- std, each fold's log.txt (training,
+            validation and test results, MRIaccuracy) and exactly one best
+            .pt, losses and accuracies finite, every fold's train feed the
+            device cache, and the launches: K1 and K2 once and 6 times a
+            forward, K5 and K6 twice a train step, K3 twice an eval batch,
+            K4 and K7 launched, each in its rule's variant. Then `--model
+            CNN --folds 0` (the same without K1 and K2); one epoch of fold
+            0's train loader (and its ragged validation loader) through the
+            host Loader + pad_batch, DeviceFeed, DeviceCachedFeed and a
+            HybridCachedFeed about half cold: the same batches bit for bit;
+            fold 0's best .pt scored by `cli/evaluate.py` on the card: fold
+            0's test metrics (counts equal, loss and AUC within 1e-5); a
+            resumed run: the step, learning rate, Adam moments, scheduler
+            and generator right after the load equal what was saved, and it
+            logs epoch 2 only. Printed, not held: each fold's epoch vols/s as
+            the Trainer logs it, for the cached, streaming and hybrid feeds
 
 The line before the last is a JSON object with one entry per kernel: `ms`,
 `plain_ms`, `bound_ms`, `bound_by` and `library_ms` belong to the bfloat16
 run at the first shape listed for the kernel (K1's full-resolution case is
 under `full_resolution`, its launch floor under `launch_floor_ms`),
 `max_abs_err` is the largest over all its cases, `launches` its count over
-the six serving and train runs and the learning check together, each
-counted from zero. Before it a `[time]` line gives the
+the six serving and train runs, the learning check and the two k-fold CLI
+runs together, each counted from zero. Before it a `[time]` line gives the
 seconds each group of phases took. The last line is
 {"ok": true, "device": {...}}.
 
@@ -147,10 +168,16 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import glob
 import json
+import math
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -179,6 +206,9 @@ BF16_RTOL = 2.0 ** -7  # one bfloat16 ulp, relative
 SPIN_CYCLES = 400_000  # `_queued_ms`'s spin: ~0.2 ms at the H100's clock
 # phase 13, scripts/tpu_sanity_train.py's steps and batch; the eval batch
 LEARN_STEPS, LEARN_BATCH, EVAL_BATCH = 40, 8, 6
+# phase 14: pairs a class of the synthetic tree, folds, and the reference
+# README's flags (the task's seed is 42)
+KFOLD_PER_CLASS, KFOLD_FOLDS, KFOLD_SEED = 20, 5, 42
 SERVING_KERNELS = ("token_pool", "attention_fwd", "stem_conv",
                    "affine_act_pool")
 TRAIN_KERNELS = ("token_pool", "attention_fwd", "affine_act_pool",
@@ -2063,6 +2093,323 @@ def eval_check():
           f"{ties.nonzero().flatten().tolist()}", flush=True)
 
 
+def _cli_flags(root, ckpt, name, model="Transformer", folds=""):
+    """The reference README's command at 1 + 1 epochs, on the card."""
+    flags = ["--dataroot", root, "--task", "ADCN", "--model", model,
+             "--batch_size", str(BATCH), "--aug", "True", "--randint",
+             "False", "--num_folds", str(KFOLD_FOLDS), "--stage1_epochs",
+             "1", "--stage2_epochs", "1", "--checkpoints_dir", ckpt,
+             "--name", name]
+    return flags + (["--folds", folds] if folds else [])
+
+
+def _epoch_rates(log_path):
+    """The epochs' volumes/s as the Trainer logged them."""
+    text = open(log_path).read()
+    return [float(v) for v in re.findall(r"Epoch time: [0-9.]+s "
+                                         r"\(([0-9.]+) volumes/s\)", text)]
+
+
+def _kfold_run(tag, root, ckpt, name, n_records, model, folds=""):
+    """Run the k-fold CLI in this process with the counts at 0; hold its
+    logs, checkpoints, metrics, feeds and launches. Returns (result,
+    launches, the folds that ran)."""
+    from transmf_ad_tpu_torch.cli import kfold_train_adversarial
+    from transmf_ad_tpu_torch.train.kfold import (kfold_split,
+                                                  train_val_split)
+
+    ran = ([int(f) for f in folds.split(",")] if folds
+           else list(range(KFOLD_FOLDS)))
+    steps = evals = 0
+    for fold, (tr, te) in enumerate(kfold_split(n_records, KFOLD_FOLDS,
+                                                KFOLD_SEED)):
+        if fold in ran:
+            tr, va = train_val_split(tr, KFOLD_SEED)
+            steps += 2 * (len(tr) // BATCH)  # drop_last, 2 epochs
+            evals += 2 * math.ceil(len(va) / BATCH) + math.ceil(
+                len(te) / BATCH)
+    reset_counts()
+    res = kfold_train_adversarial.main(_cli_flags(root, ckpt, name, model,
+                                                  folds))
+    launches = _launches()
+    took = _require_variants(tag, FAST)
+    forwards = steps + evals
+    transformer = model == "Transformer"
+    exact = {"stem_conv_stats": 2 * steps, "stem_dw": 2 * steps,
+             "stem_conv": 2 * evals,
+             "token_pool": forwards if transformer else 0,
+             "attention_fwd": ATTENTION_CALLS * forwards if transformer
+             else 0}
+    kernels = [k for k in TRAIN_KERNELS + ("stem_conv",)
+               if transformer or k not in ("token_pool", "attention_fwd")]
+    _require_launches(tag, launches, kernels, exact)
+
+    if len(res["folds"]) != len(ran) or res["feeds"] != \
+            ["DeviceCachedFeed"] * len(ran):
+        raise AssertionError(f"{tag}: folds {res['folds']}, feeds "
+                             f"{res['feeds']}")
+    folds_arr = np.array(res["folds"])
+    if not np.isfinite(folds_arr[:, :2]).all():
+        raise AssertionError(f"{tag}: a loss or accuracy is not finite: "
+                             f"{res['folds']}")
+    mean = np.array(res["mean"])
+    some = np.isfinite(folds_arr).any(axis=0)
+    if not (np.isfinite(mean) == some).all():
+        raise AssertionError(f"{tag}: the nan-mean {res['mean']} does not "
+                             f"follow the folds {res['folds']}")
+    main_log = open(os.path.join(ckpt, name, "log.txt")).read()
+    lines = re.findall(r"^loss: \S+ accuracy: .* AUC: \S+ $", main_log,
+                       re.M)
+    final = re.findall(r"^(loss|acc|sen|spe|f1|auc): \S+ \+- \S+$",
+                       main_log, re.M)
+    if len(lines) != len(ran) or len(final) != 6 \
+            or "************Final Results************" not in main_log:
+        raise AssertionError(f"{tag}: the main log has {len(lines)} fold "
+                             f"lines and {len(final)} aggregate lines")
+    rates = {}
+    for fold in ran:
+        d = os.path.join(ckpt, name, str(fold))
+        log = open(os.path.join(d, "log.txt")).read()
+        missing = [t for t in ("Training Results", "Validation Results",
+                               "Test Results", "MRIaccuracy",
+                               "HBM dataset cache") if t not in log]
+        best = glob.glob(os.path.join(d, "best_label_net_model_*.pt"))
+        if missing or len(best) != 1:
+            raise AssertionError(f"{tag}: fold {fold}'s log lacks {missing}"
+                                 f", best checkpoints {best}")
+        rates[fold] = _epoch_rates(os.path.join(d, "log.txt"))
+    print(f"[{tag}] {len(ran)} folds, {steps} train steps and {evals} eval "
+          f"batches: mean {[round(v, 4) for v in res['mean']]} +- "
+          f"{[round(v, 4) for v in res['std']]}, folds {res['folds']}; "
+          f"launches {launches}, variants {took}", flush=True)
+    print(f"[{tag}] epoch vols/s by fold (epoch 1, 2; the cached feed, as "
+          f"the Trainer logs it) on {torch.cuda.get_device_name(0)}: {rates}",
+          flush=True)
+    return res, launches, ran
+
+
+def _same_batches(tag, got, want):
+    """Two lists of batches agree bit for bit: volumes as int16 views of
+    bfloat16, labels, masks and the real counts."""
+    if len(got) != len(want):
+        raise AssertionError(f"{tag}: {len(got)} batches, not {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in ("MRI", "PET", "label", "mask"):
+            a, b = (torch.as_tensor(x).cpu() for x in (g[k], w[k]))
+            if k in ("MRI", "PET"):
+                a, b = a.view(torch.int16), b.view(torch.int16)
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"{tag}: batch {i} {k} differs")
+        if g["_n_real"] != w["_n_real"]:
+            raise AssertionError(f"{tag}: batch {i} _n_real differs")
+
+
+def _feeds_check(source, n_records):
+    """One epoch of fold 0's train loader (drop_last, shuffled) and of its
+    validation loader (7 pairs: a ragged batch) through the host path and
+    the three device feeds: the same batches, bit for bit."""
+    from transmf_ad_tpu_torch.data import (DeviceCachedFeed, DeviceFeed,
+                                           HybridCachedFeed, Loader,
+                                           cache_bytes, pad_batch)
+    from transmf_ad_tpu_torch.train.kfold import (kfold_split,
+                                                  train_val_split)
+
+    tr, _ = next(kfold_split(n_records, KFOLD_FOLDS, KFOLD_SEED))
+    tr, va = train_val_split(tr, KFOLD_SEED)
+    for which, idx, kw in (("train", tr, dict(shuffle=True, drop_last=True,
+                                              seed=KFOLD_SEED)),
+                           ("validation", va, {})):
+        def loader():
+            return Loader(source, list(idx), BATCH, **kw)
+
+        host = [dict(pad_batch(b, BATCH), _n_real=int(b["label"].shape[0]))
+                for b in loader()]
+        half = cache_bytes(loader()) / len(idx) * (len(idx) // 2)
+        with mock.patch.dict(os.environ,
+                             {"TRANSMF_CACHE_BUDGET_MB": str(half / 2**20)}):
+            hybrid = HybridCachedFeed(loader(), "cuda", pad_to=BATCH)
+        if not 0 < hybrid.n_hot < len(idx):
+            raise AssertionError(f"feeds: the hybrid feed holds "
+                                 f"{hybrid.n_hot} of {len(idx)} rows hot")
+        feeds = {"DeviceFeed": DeviceFeed(loader(), "cuda", pad_to=BATCH),
+                 "DeviceCachedFeed": DeviceCachedFeed(loader(), "cuda",
+                                                      pad_to=BATCH),
+                 f"HybridCachedFeed ({hybrid.n_hot}/{len(idx)} hot)": hybrid}
+        for name, feed in feeds.items():
+            batches = list(feed)
+            if any(b["MRI"].device.type != "cuda" for b in batches):
+                raise AssertionError(f"feeds: {name} left a batch off the "
+                                     "card")
+            _same_batches(f"feeds, {which}, {name}", batches, host)
+        print(f"[k-fold, feeds] fold 0's {which} loader ({len(idx)} pairs, "
+              f"{len(host)} batches of {BATCH}, real counts "
+              f"{[b['_n_real'] for b in host]}): the host Loader + "
+              f"pad_batch, {', '.join(feeds)} give the same batches bit for "
+              f"bit", flush=True)
+
+
+def _evaluate_check(root, ckpt, name, fold0):
+    """Fold 0's best .pt scored by `cli/evaluate.py` on the card gives the
+    fold's logged test metrics."""
+    from transmf_ad_tpu_torch.cli import evaluate
+
+    (best,) = glob.glob(os.path.join(ckpt, name, "0",
+                                     "best_label_net_model_*.pt"))
+    m = evaluate.main(["--checkpoint", best, "--fold", "0",
+                       *_cli_flags(root, ckpt, "evaluate")])
+    got = [m["loss"], m["accuracy"], m["sen"], m["spe"], m["f1"], m["auc"]]
+    counts = all((a == b) or (np.isnan(a) and np.isnan(b))
+                 for a, b in zip(got[1:5], fold0[1:5]))
+    close = all((abs(a - b) <= 1e-5) or (np.isnan(a) and np.isnan(b))
+                for a, b in ((got[0], fold0[0]), (got[5], fold0[5])))
+    if not (counts and close):
+        raise AssertionError(f"evaluate: {got} from {best}, the fold logged "
+                             f"{fold0}")
+    print(f"[k-fold, evaluate] cli/evaluate.py --fold 0 on {best}: {got}; "
+          f"fold 0 logged {fold0} (counts equal, loss and AUC within 1e-5)",
+          flush=True)
+
+
+def _fold0_trainer(source, save_dir, n_records, **cfg_kw):
+    """A Trainer as the k-fold driver makes fold 0's, and fold 0's
+    loaders over `source`."""
+    from transmf_ad_tpu_torch.data import Loader
+    from transmf_ad_tpu_torch.train import Trainer, TrainerConfig
+    from transmf_ad_tpu_torch.train.kfold import (kfold_split,
+                                                  train_val_split)
+
+    tr, _ = next(kfold_split(n_records, KFOLD_FOLDS, KFOLD_SEED))
+    tr, va = train_val_split(tr, KFOLD_SEED)
+    loaders = (Loader(source, list(tr), BATCH, shuffle=True, drop_last=True,
+                      seed=KFOLD_SEED),
+               Loader(source, list(va), BATCH))
+    cfg = TrainerConfig(seed=KFOLD_SEED, save_dir=save_dir, progress=False,
+                        **cfg_kw)
+    return Trainer(cfg), loaders
+
+
+def _resume_check(source, tmp, n_records):
+    """One epoch with save_latest_every=1, then a run resumed to 2: right
+    after the load the step, learning rate, Adam moments, scheduler and
+    generator equal what was saved, and the run logs epoch 2 only."""
+    from transmf_ad_tpu_torch.train import checkpoint as ckpt
+    from transmf_ad_tpu_torch.train import trainer as trainer_mod
+
+    save = os.path.join(tmp, "resume")
+    first, loaders = _fold0_trainer(source, save, n_records, epochs=1,
+                                    save_latest_every=1)
+    first.fit(*loaders)
+    saved = ckpt.load_latest(save)
+    seen = {}
+    run = trainer_mod.Engine.run
+
+    def spy(engine, loader, max_epochs=1, start_epoch=0):
+        st = resumed.state
+        seen.update(start=start_epoch, step=st.step,
+                    lr=st.optimizer.param_groups[0]["lr"],
+                    opt=copy.deepcopy(st.optimizer.state_dict()),
+                    sched=st.scheduler.state_dict(),
+                    gen=st.generator.get_state().clone())
+        return run(engine, loader, max_epochs, start_epoch)
+
+    resumed, loaders = _fold0_trainer(source, save, n_records, epochs=2,
+                                      resume=True)
+    with mock.patch.object(trainer_mod.Engine, "run", spy):
+        resumed.fit(*loaders)
+    moments = all(torch.equal(seen["opt"]["state"][i][k].cpu(), v)
+                  for i, st in saved["optimizer"]["state"].items()
+                  for k, v in st.items())
+    log = open(os.path.join(save, "log.txt")).read()
+    after = log[log.index("Resumed from epoch 1"):]
+    ok = (seen["start"] == saved["epoch"] == 1
+          and seen["step"] == saved["step"] > 0
+          and seen["lr"] == saved["optimizer"]["param_groups"][0]["lr"]
+          and moments and seen["sched"] == saved["scheduler"]
+          and torch.equal(seen["gen"], saved["generator"])
+          and "Training Results - Epoch[2]" in after
+          and "Epoch[1]" not in after
+          and resumed.state.step == 2 * saved["step"])
+    if not ok:
+        raise AssertionError(f"resume: restored start {seen['start']}, step "
+                             f"{seen['step']}, lr {seen['lr']}, moments "
+                             f"{moments}; saved epoch {saved['epoch']}, step "
+                             f"{saved['step']}")
+    print(f"[k-fold, resume] 1 epoch with save_latest_every=1, then resumed "
+          f"to 2: step {seen['step']}, lr {seen['lr']}, Adam moments of "
+          f"{len(saved['optimizer']['state'])} tensors, the scheduler and "
+          f"the generator's state restored exactly; the resumed run logged "
+          f"epoch 2 only", flush=True)
+
+
+def _feed_rates(source, tmp, n_records):
+    """Fold 0 for 2 epochs through the streaming and the hybrid feeds: the
+    epochs' vols/s as the Trainer logs them (printed, not held)."""
+    from transmf_ad_tpu_torch.data import (DeviceFeed, HybridCachedFeed,
+                                           cache_bytes)
+
+    rates = {}
+    for feed, want in (("off", DeviceFeed), ("hybrid", HybridCachedFeed)):
+        save = os.path.join(tmp, f"feed_{feed}")
+        trainer, loaders = _fold0_trainer(source, save, n_records, epochs=2,
+                                          device_cache=feed)
+        half = cache_bytes(loaders[0]) / 2
+        with mock.patch.dict(os.environ,
+                             {"TRANSMF_CACHE_BUDGET_MB": str(half / 2**20)}):
+            trainer.fit(*loaders)
+        if not isinstance(trainer.train_feed, want):
+            raise AssertionError(f"device_cache={feed!r} fed the card "
+                                 f"through {type(trainer.train_feed)}")
+        name = type(trainer.train_feed).__name__
+        if feed == "hybrid":
+            name += (f" ({trainer.train_feed.n_hot}/"
+                     f"{len(loaders[0].indices)} hot)")
+        rates[name] = _epoch_rates(os.path.join(save, "log.txt"))
+    print(f"[k-fold, feeds] fold 0, full-width ModelAd bf16, batch {BATCH}, "
+          f"augmentation on: epoch vols/s (epoch 1, 2) by feed on "
+          f"{torch.cuda.get_device_name(0)}: {rates}", flush=True)
+
+
+def kfold_check(card):
+    """Phase 14: the k-fold entry point on the card (see the module's
+    docstring). Returns the launch counts of its two CLI runs."""
+    from transmf_ad_tpu_torch.data import (ADNI, VolumeSource,
+                                           make_synthetic_adni)
+
+    laps = [("start", time.perf_counter())]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "adni")
+        make_synthetic_adni(root, n_per_group=KFOLD_PER_CLASS, shape=VOLUME,
+                            groups=("CN", "AD"), seed=1,
+                            workers=os.cpu_count() or 1)
+        n = 2 * KFOLD_PER_CLASS
+        laps.append(("tree", time.perf_counter()))
+        print(f"[k-fold] synthetic ADNI, {n} ADCN pairs at {VOLUME}, written "
+              f"in {laps[-1][1] - laps[0][1]:.1f} s", flush=True)
+        ckpt = os.path.join(tmp, "checkpoints")
+        res, launches, _ = _kfold_run("k-fold, ModelAd", root, ckpt, "kfold",
+                                      n, "Transformer")
+        laps.append(("5 folds", time.perf_counter()))
+        _, cnn, _ = _kfold_run("k-fold, ModelCNNAd", root, ckpt, "kfold_cnn",
+                               n, "CNN", folds="0")
+        laps.append(("CNN fold", time.perf_counter()))
+        # one bf16 RAM cache for the checks below, decoded once
+        source = VolumeSource(ADNI(root, task="ADCN").data_dict,
+                              dtype=torch.bfloat16)
+        _feeds_check(source, n)
+        laps.append(("feeds", time.perf_counter()))
+        _evaluate_check(root, ckpt, "kfold", res["folds"][0])
+        laps.append(("evaluate", time.perf_counter()))
+        _resume_check(source, tmp, n)
+        laps.append(("resume", time.perf_counter()))
+        _feed_rates(source, tmp, n)
+        laps.append(("feed rates", time.perf_counter()))
+    spent = ", ".join(f"{name} {t - t_before:.1f}" for (_, t_before), (name, t)
+                      in zip(laps, laps[1:]))
+    print(f"[k-fold] phase seconds {laps[-1][1] - laps[0][1]:.1f} ({spent}) "
+          f"on {card}", flush=True)
+    return launches, cnn
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", nargs="+", default=(), metavar="KERNEL",
@@ -2106,7 +2453,7 @@ def main(argv=None) -> int:
     reset_launch_counts()  # phase 3 launched "column" on purpose
     lap("kernel checks")
     if only:
-        print(f"chip_smoke: --only {' '.join(only)}: phases 4-13 not run, "
+        print(f"chip_smoke: --only {' '.join(only)}: phases 4-14 not run, "
               "no result", flush=True)
         return 0
     side = {f"{name} at {keys} keys": round(times[name, label], 4)
@@ -2163,12 +2510,16 @@ def main(argv=None) -> int:
     learned = learning_check(card)
     reset_counts()
     lap("learning check")
+    kfold, kfold_cnn = kfold_check(card)
+    reset_counts()
+    lap("k-fold")
     runs = {"serving": serving, "train": trained,
             "serving, full resolution": full_serving,
             "train, full resolution": full_trained,
             tag: res_serving,
             "train, full resolution, transformer_res": res_trained,
-            "learning check": learned}
+            "learning check": learned, "k-fold CLI": kfold,
+            "k-fold CLI, CNN": kfold_cnn}
     print(f"[launches] {runs}", flush=True)
     spent = ", ".join(f"{name} {t - t_before:.1f}" for (_, t_before), (name, t)
                       in zip(laps, laps[1:]))

@@ -92,6 +92,6 @@ def test_wrong_shape_raises(variables):
 
 def test_unported_model_raises(variables):
     with pytest.raises(ValueError, match="ported models are 'ad'"):
-        state_dict_from_jax(variables, model="cnn_ad")
+        state_dict_from_jax(variables, model="single")
     with pytest.raises(ValueError, match="unported"):
-        build_model("cnn_ad")
+        build_model("single")

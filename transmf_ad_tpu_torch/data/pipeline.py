@@ -1,7 +1,6 @@
-"""Host-side data pipeline: decode -> cache -> batch.
+"""Data pipeline: decode -> cache -> batch -> device.
 
-Port of the numpy half of transmf_ad_tpu/data/pipeline.py, with the same
-behaviour:
+Port of transmf_ad_tpu/data/pipeline.py, with the same behaviour:
 
  - decoded, intensity-normalised volumes are cached in host RAM after the
    first epoch (`VolumeSource`), decoding cache misses of a batch through
@@ -9,7 +8,11 @@ behaviour:
  - batches are assembled by a background thread into a bounded queue
    (`Loader`), overlapping host work with device steps;
  - a ragged last batch is padded to a fixed size with a validity mask
-   (`pad_batch`).
+   (`pad_batch`);
+ - batches move to the device `depth` steps ahead of their use
+   (`device_prefetch`, `DeviceFeed`): on a CUDA device through pinned host
+   memory and asynchronous copies on a side stream, so a copy overlaps the
+   step before it.
 
 The bfloat16 cache holds `torch.bfloat16` CPU tensors, not numpy arrays:
 numpy has no bfloat16 without ml_dtypes, which the port does not rely on.
@@ -23,7 +26,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -279,3 +282,100 @@ def pad_batch(batch: Dict, pad_to: int) -> Dict:
         out[k] = v
     out["mask"] = mask
     return out
+
+
+def _to_tensor(v) -> torch.Tensor:
+    return v if isinstance(v, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(v))
+
+
+def device_prefetch(batches: Iterable[Dict], device="cuda", depth: int = 2):
+    """Move batches (dicts of numpy arrays or CPU tensors) to `device`
+    `depth` batches ahead of their use; yields dicts of tensors.
+
+    On a CUDA device each value is staged in pinned host memory and copied
+    with `non_blocking=True` on a side stream; the consumer's stream waits
+    on the copy's event before it gets the batch, and each device tensor is
+    marked as used by the consumer's stream (`record_stream`), so the
+    allocator does not hand its memory out again while the step still
+    reads it. The pinned buffers come from PyTorch's caching host
+    allocator, which keeps a block until the copies that read it are done.
+    On the CPU device the values become tensors in place, with no stream.
+    A '_n_real' entry is host metadata (the real-sample count the trainer
+    dispatches on): it is carried around the transfer, never moved.
+    """
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    side = torch.cuda.Stream(device) if cuda else None
+
+    def put(b):
+        n = b.pop("_n_real", None)
+        if cuda:
+            host = {k: _to_tensor(v).pin_memory() for k, v in b.items()}
+            with torch.cuda.stream(side):
+                out = {k: v.to(device, non_blocking=True)
+                       for k, v in host.items()}
+                ready = torch.cuda.Event()
+                ready.record(side)
+        else:
+            out = {k: _to_tensor(v).to(device) for k, v in b.items()}
+            ready = None
+        if n is not None:
+            out["_n_real"] = n
+        return out, ready
+
+    def take(entry):
+        out, ready = entry
+        if ready is not None:
+            consumer = torch.cuda.current_stream(device)
+            consumer.wait_event(ready)
+            for v in out.values():
+                if isinstance(v, torch.Tensor):
+                    v.record_stream(consumer)
+        return out
+
+    buf: List = []
+    it = iter(batches)
+    for b in it:
+        buf.append(put(b))
+        if len(buf) >= depth:
+            break
+    for nxt in it:
+        out = take(buf.pop(0))
+        buf.append(put(nxt))
+        yield out
+    while buf:
+        yield take(buf.pop(0))
+
+
+class DeviceFeed:
+    """Loader adapter: iteration yields batches already on `device`,
+    transferred `depth` steps ahead of their use (`device_prefetch`), each
+    padded to `pad_to` samples by `pad_batch` with its real count as
+    '_n_real' when `pad_to` is given. Used by `Trainer.fit` as the
+    streaming feed; delegates `len`/`peek` to the wrapped loader."""
+
+    def __init__(self, loader, device="cuda", depth: int = 2,
+                 pad_to: Optional[int] = None):
+        self.loader = loader
+        self.device = torch.device(device)
+        self.depth = depth
+        self.pad_to = pad_to  # fixed batch size (see pad_batch)
+
+    def __len__(self):
+        return len(self.loader)
+
+    def peek(self):
+        return self.loader.peek()
+
+    def __iter__(self):
+        it = iter(self.loader)
+        if self.pad_to is not None:
+            def padded(it):
+                for b in it:
+                    n = int(b["label"].shape[0])
+                    pb = pad_batch(b, self.pad_to)
+                    pb["_n_real"] = n  # host metadata (see device_prefetch)
+                    yield pb
+            it = padded(it)
+        return device_prefetch(it, self.device, self.depth)

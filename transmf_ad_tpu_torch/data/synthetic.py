@@ -7,12 +7,16 @@ documents (reference: README.md:13-37): ``<root>/MRI/<subj>.nii.gz``,
 ``Subject,Group,Age``. Volumes get a class-dependent signal (a bright blob
 whose radius scales with the label) so training on the fixture is learnable —
 used by integration tests and benchmarks.
+
+`workers` > 1 writes the files from a thread pool (gzip releases the GIL);
+the volumes are drawn in the same order, so the tree is the same.
 """
 
 from __future__ import annotations
 
 import csv
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -27,6 +31,7 @@ def make_synthetic_adni(
     shape=(32, 40, 32),
     groups=GROUPS,
     seed: int = 0,
+    workers: int = 1,
 ) -> str:
     """Create a synthetic ADNI tree under `root`; returns `root`."""
     rng = np.random.default_rng(seed)
@@ -38,6 +43,15 @@ def make_synthetic_adni(
     r2 = (coords**2).sum(0)
 
     rows = []
+    pool = ThreadPoolExecutor(workers) if workers > 1 else None
+    writes = []
+
+    def save(path, vol):
+        if pool is None:
+            nifti.save(path, vol)
+        else:
+            writes.append(pool.submit(nifti.save, path, vol))
+
     for group in groups:
         # Positive classes (AD, pMCI) get a larger bright blob.
         radius = 0.55 if group in ("AD", "pMCI", "MCI") else 0.35
@@ -48,10 +62,14 @@ def make_synthetic_adni(
                 vol = gain * blob + 0.15 * rng.standard_normal(shape).astype(
                     np.float32
                 )
-                nifti.save(os.path.join(root, mod, subj + ".nii.gz"), vol)
+                save(os.path.join(root, mod, subj + ".nii.gz"), vol)
             rows.append(
                 {"Subject": subj, "Group": group, "Age": 70 + rng.integers(0, 15)}
             )
+    if pool is not None:
+        pool.shutdown()
+        for done in writes:
+            done.result()  # a failed write raises here
     with open(os.path.join(root, "ADNI.csv"), "w", newline="") as f:
         w = csv.DictWriter(f, fieldnames=["Subject", "Group", "Age"])
         w.writeheader()

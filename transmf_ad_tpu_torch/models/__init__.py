@@ -4,10 +4,11 @@
 fusion models get dim, depth, heads and dropout, and default dim_head to
 dim // heads and mlp_dim to dim * 4, as the reference's k-fold training
 scripts do; then every keyword the class's constructor does not take is
-dropped, so that callers can pass one config to every model. Only 'ad',
-'transformer' and 'transformer_res' are ported so far. `ADVERSARIAL` lists
-the ported models that return (logits, d_mri, d_pet) triples; the others
-return logits.
+dropped, so that callers can pass one config to every model; the CNN
+models get dim alone. Ported so far: 'ad', 'transformer',
+'transformer_res', 'cnn' and 'cnn_ad'. `ADVERSARIAL` lists the ported
+models that return (logits, d_mri, d_pet) triples; the others return
+logits.
 """
 
 from __future__ import annotations
@@ -16,14 +17,17 @@ import inspect
 
 from .transmf import (  # noqa: F401
     ModelAd,
+    ModelCNN,
+    ModelCNNAd,
     ModelTransformer,
     ModelTransformerRes,
 )
 
-ADVERSARIAL = {"ad"}
+ADVERSARIAL = {"cnn_ad", "ad"}
 
-_REGISTRY = {"ad": ModelAd, "transformer": ModelTransformer,
-             "transformer_res": ModelTransformerRes}
+_REGISTRY = {"cnn": ModelCNN, "transformer": ModelTransformer,
+             "transformer_res": ModelTransformerRes, "cnn_ad": ModelCNNAd,
+             "ad": ModelAd}
 _FUSION_MODELS = {"transformer", "transformer_res", "ad"}
 
 
@@ -50,5 +54,7 @@ def build_model(name: str, dim: int = 128, depth: int = 3, heads: int = 4,
         kw.setdefault("dim_head", dim // heads)
         kw.setdefault("mlp_dim", dim * 4)
         kw.update(dim=dim, depth=depth, heads=heads, dropout=dropout)
+    else:
+        kw.update(dim=dim)
     takes = inspect.signature(cls).parameters
     return cls(**{k: v for k, v in kw.items() if k in takes})

@@ -1,17 +1,21 @@
-"""The cross-modal fusion models: `ModelAd`, `ModelTransformer`,
-`ModelTransformerRes`.
+"""The task models: `ModelAd`, `ModelTransformer`, `ModelTransformerRes`,
+`ModelCNN` and `ModelCNNAd`.
 
-Port of transmf_ad_tpu/models/transmf.py (`_FusionHead`, `_Discriminator`
-and the three models). `ModelAd`, the paper model: dual sNet encoders, a
-gradient-reversal discriminator on the pooled features, cross-modal
-transformer fusion and a 4*dim pooling head -> (logits, d_mri, d_pet).
+Port of transmf_ad_tpu/models/transmf.py (`_MLPHead`, `_FusionHead`,
+`_Discriminator` and five models). `ModelAd`, the paper model: dual sNet
+encoders, a gradient-reversal discriminator on the pooled features,
+cross-modal transformer fusion and a 4*dim pooling head -> (logits, d_mri,
+d_pet).
 `ModelTransformer` is the same without the discriminator -> logits.
 `ModelTransformerRes` fuses with `CrossTransformer` (each stream attends
 over both), adds the encoder tokens back, averages each stream over its
-tokens and classifies with a BatchNorm-less head -> logits. Module names
-follow the reference torch models (`mri_cnn`, `pet_cnn`, `D.{0,1,3}`,
-`fuse_transformer`, `fc_cls.{0,1,4,5,8}`, or `fc_cls.{0,3,6}` without
-BatchNorm).
+tokens and classifies with a BatchNorm-less head -> logits.
+`ModelCNN` fuses late: each encoder's map averaged over space, the two
+vectors concatenated, an MLP head -> logits; `ModelCNNAd` adds
+`ModelAd`'s discriminator on those vectors -> (logits, d_mri, d_pet).
+Module names follow the reference torch models (`mri_cnn`, `pet_cnn`,
+`D.{0,1,3}`, `fuse_transformer`, `fc_cls.{0,1,4,5,8}`, or `fc_cls.{0,3,6}`
+without BatchNorm, `fc.{0,2}` / `fc_cls.{0,2}` for the MLP heads).
 
 Volumes are channels-last (B, X, Y, Z, 1); the whole forward computes in
 the volumes' dtype with float32 parameters. `train=True` takes BatchNorm
@@ -31,6 +35,15 @@ from ..nn.blocks import (BAND_MIN_VOXELS, SNet, global_avg_pool,
                          tokens_from_volume)
 from ..nn.dropout import Dropout
 from ..nn.grl import revgrad
+
+
+class _MLPHead(nn.Sequential):
+    """Linear -> ReLU -> Linear(hidden, 2) classifier head (reference:
+    mymodel.py:20,50,150)."""
+
+    def __init__(self, in_features: int, hidden: int):
+        super().__init__(Linear(in_features, hidden), nn.ReLU(),
+                         Linear(hidden, 2))
 
 
 class _FusionHead(nn.Sequential):
@@ -156,3 +169,52 @@ class ModelTransformerRes(nn.Module):
         pooled = torch.cat([(mri_f + mri_tok).mean(dim=1),
                             (pet_f + pet_tok).mean(dim=1)], dim=-1)
         return self.fc_cls(pooled, train, bn_mask, generator)
+
+
+class ModelCNN(nn.Module):
+    """Dual-branch CNN, late fusion (reference: mymodel.py:40-66): two
+    sNets, each averaged over space, concatenated, MLP 2*dim -> 128 -> 2
+    -> logits."""
+
+    def __init__(self, dim: int = 128,
+                 band_min_voxels: int = BAND_MIN_VOXELS):
+        super().__init__()
+        self.mri_cnn = SNet(dim, band_min_voxels)
+        self.pet_cnn = SNet(dim, band_min_voxels)
+        self.fc = _MLPHead(2 * dim, 128)
+
+    def forward(self, mri, pet, train: bool = False, bn_mask=None,
+                generator=None):
+        """mri, pet: (B, X, Y, Z, 1) -> logits (B, 2). The model has no
+        dropout; `generator` is taken for the train step's sake."""
+        fused = torch.cat(
+            [global_avg_pool(self.mri_cnn(mri, train, bn_mask)),
+             global_avg_pool(self.pet_cnn(pet, train, bn_mask))], dim=-1)
+        return self.fc(fused)
+
+
+class ModelCNNAd(nn.Module):
+    """`ModelCNN` with the gradient-reversal discriminator on the pooled
+    vectors, shared by the modalities (reference: mymodel.py:144-179)
+    -> (logits, d_mri, d_pet)."""
+
+    def __init__(self, dim: int = 128, grl_alpha: float = 2.0,
+                 band_min_voxels: int = BAND_MIN_VOXELS):
+        super().__init__()
+        self.grl_alpha = grl_alpha
+        self.mri_cnn = SNet(dim, band_min_voxels)
+        self.pet_cnn = SNet(dim, band_min_voxels)
+        self.D = _Discriminator(dim)
+        self.fc_cls = _MLPHead(2 * dim, 128)
+
+    def forward(self, mri, pet, train: bool = False, bn_mask=None,
+                generator=None):
+        """mri, pet: (B, X, Y, Z, 1) -> (logits, d_mri, d_pet), each (B, 2).
+        The model has no dropout; `generator` is taken for the train
+        step's sake."""
+        mri_vec = global_avg_pool(self.mri_cnn(mri, train, bn_mask))
+        pet_vec = global_avg_pool(self.pet_cnn(pet, train, bn_mask))
+        d_mri = self.D(revgrad(mri_vec, self.grl_alpha), train, bn_mask)
+        d_pet = self.D(revgrad(pet_vec, self.grl_alpha), train, bn_mask)
+        logits = self.fc_cls(torch.cat([mri_vec, pet_vec], dim=-1))
+        return logits, d_mri, d_pet

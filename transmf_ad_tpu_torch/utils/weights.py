@@ -96,17 +96,28 @@ def cross_transformer_state_dict(params, prefix: str = "",
     return sd
 
 
+PORTED = ("ad", "transformer", "transformer_res", "cnn", "cnn_ad")
+
+
 def state_dict_from_jax(variables, model: str = "ad") -> dict:
-    """JAX `{"params", "batch_stats"}` of `model` ('ad', 'transformer' or
-    'transformer_res') -> this package's state_dict (float32 CPU tensors),
-    ready for `load_state_dict`."""
-    if model not in ("ad", "transformer", "transformer_res"):
+    """JAX `{"params", "batch_stats"}` of `model` (one of `PORTED`) -> this
+    package's state_dict (float32 CPU tensors), ready for
+    `load_state_dict`."""
+    if model not in PORTED:
         raise ValueError("state_dict_from_jax: ported models are 'ad', "
-                         f"'transformer' and 'transformer_res', got {model!r}")
+                         "'transformer', 'transformer_res', 'cnn' and "
+                         f"'cnn_ad', got {model!r}")
     params, stats = variables["params"], variables["batch_stats"]
     sd: dict = {}
     for mod in ("mri_cnn", "pet_cnn"):
         sd.update(snet_state_dict(params[mod], stats[mod], mod))
+    if model in ("cnn", "cnn_ad"):  # Linear -> ReLU -> Linear head
+        head = "fc" if model == "cnn" else "fc_cls"
+        _put(sd, f"{head}.0", _linear(params[head]["Dense_0"]))
+        _put(sd, f"{head}.2", _linear(params[head]["Dense_1"]))
+        if model == "cnn_ad":
+            _discriminator(sd, params["D"], stats["D"])
+        return sd
     sd.update(cross_transformer_state_dict(params["fuse_transformer"],
                                            "fuse_transformer"))
     head = params["fc_cls"]
@@ -121,11 +132,14 @@ def state_dict_from_jax(variables, model: str = "ad") -> dict:
     _put(sd, "fc_cls.5", _bn(head["BatchNorm_1"], head_st["BatchNorm_1"]))
     _put(sd, "fc_cls.8", _linear(head["Dense_2"]))
     if model == "ad":
-        d, d_st = params["D"], stats["D"]
-        _put(sd, "D.0", _linear(d["Dense_0"]))
-        _put(sd, "D.1", _bn(d["BatchNorm_0"], d_st["BatchNorm_0"]))
-        _put(sd, "D.3", _linear(d["Dense_1"]))
+        _discriminator(sd, params["D"], stats["D"])
     return sd
+
+
+def _discriminator(sd, d, d_st):
+    _put(sd, "D.0", _linear(d["Dense_0"]))
+    _put(sd, "D.1", _bn(d["BatchNorm_0"], d_st["BatchNorm_0"]))
+    _put(sd, "D.3", _linear(d["Dense_1"]))
 
 
 @torch.no_grad()
