@@ -29,7 +29,9 @@ before the final line:
             ("mma" on the tensor cores for bfloat16 at the models' widths,
             "vec" for K4 and K7 wherever a channel row is whole 16-byte
             pieces, "rows" / "direct" otherwise) and, in bfloat16 at the
-            main shapes, the earlier variant's time in the same run, with
+            main shapes (K2 also at phase 15's (24,65,65,64) of ADVIT and
+            (64,150,150,16) of the hold-out ModelAd), the earlier
+            variant's time in the same run, with
             edge cases of the tensor-core variants (one and
             two planes, tiles one below, at and one above their size,
             weights staged by taps, segments along x, blocks of channels;
@@ -144,14 +146,37 @@ before the final line:
             and generator right after the load equal what was saved, and it
             logs epoch 2 only. Printed, not held: each fold's epoch vols/s as
             the Trainer logs it, for the cached, streaming and hybrid feeds
+15. zoo      the other entry points, each `main` in this process on
+            synthetic trees of 40 ADCN pairs in bfloat16 at batch 8 with the
+            README's flags: `cli/kfold_train_single.py` (ModelSingle on the
+            MRI at 91x109x91; no drop_last, so 2 ragged train batches take
+            the masked step), `cli/kfold_train_ADVIT.py` (volumes of
+            91x109x79 padded to 128x128x79), `cli/kfold_train_Mnet.py`
+            (91x109x91, spatial kernel 11 and pool 3), each fold 0 of 1 +
+            1 epochs, and `cli/train_adversarial.py` (the hold-out 60/20/20,
+            ModelAd at heads 8, one epoch). Held: each result finite, its
+            log complete, and the exact launches its splits give, every
+            other kernel at 0: ModelSingle K5 and K6 once a train step, K3
+            once an eval batch, K4 4 times a forward, K7 4 times a step;
+            ADVIT K2 12 times a forward ("mma" at (24,65,65,64)) and no
+            other; Mnet none; the hold-out as ModelAd (K2 "mma" at head dim
+            16, K4 8 times a forward, K7 8 times a step); then
+            `cli/evaluate.py --model single --fold 0` against fold 0's
+            logged test metrics; the eval forward of ModelSingle, ADVIT
+            (128x128x79), Mnet and ModelAd at heads 8, card f32 against the
+            CPU as in phase 5; one SGD step card against CPU as in phase 7
+            of ModelSingle, ADVIT (32x32x79) and Mnet (spatial kernel 3,
+            pool 2) at 35x37x33. Printed: each run's seconds and epoch
+            vols/s
 
 The line before the last is a JSON object with one entry per kernel: `ms`,
 `plain_ms`, `bound_ms`, `bound_by` and `library_ms` belong to the bfloat16
 run at the first shape listed for the kernel (K1's full-resolution case is
 under `full_resolution`, its launch floor under `launch_floor_ms`),
 `max_abs_err` is the largest over all its cases, `launches` its count over
-the six serving and train runs, the learning check and the two k-fold CLI
-runs together, each counted from zero. Before it a `[time]` line gives the
+the six serving and train runs, the learning check, the two k-fold CLI
+runs of phase 14 and the four CLI runs of phase 15 together, each counted
+from zero. Before it a `[time]` line gives the
 seconds each group of phases took. The last line is
 {"ok": true, "device": {...}}.
 
@@ -209,6 +234,17 @@ LEARN_STEPS, LEARN_BATCH, EVAL_BATCH = 40, 8, 6
 # phase 14: pairs a class of the synthetic tree, folds, and the reference
 # README's flags (the task's seed is 42)
 KFOLD_PER_CLASS, KFOLD_FOLDS, KFOLD_SEED = 20, 5, 42
+# phase 15: ADVIT's ViT (heads, tokens at its (128, 128, 79) pad) and its
+# K2 launches a forward (depth 6, two modalities); the hold-out ModelAd's
+# heads; ADVIT's synthetic volumes, whose 79 slices its depth-collapse
+# stack takes to 1 (the reference pads to (128, 128, 79), so its volumes
+# have at most 79); Mnet's and the train checks' spatial stack at
+# CHECK_VOLUME (the reference's 11 / 3 needs a 91 x 109-class plane)
+ADVIT_HEADS, ADVIT_TOKENS, ADVIT_CALLS = 3, 65, 12
+ADVIT_PAD, ADVIT_VOLUME, ADVIT_CHECK = (128, 128, 79), (91, 109, 79), \
+    (32, 32, 79)
+HOLDOUT_HEADS = 8
+MNET_CHECK = dict(spatial_kernel=3, spatial_pool=2)
 SERVING_KERNELS = ("token_pool", "attention_fwd", "stem_conv",
                    "affine_act_pool")
 TRAIN_KERNELS = ("token_pool", "attention_fwd", "affine_act_pool",
@@ -832,6 +868,13 @@ def _kernel_cases(g):
              fused_attention, attention_reference,
              attn(2, *FLASH_SHAPE[1:4]), *sums, attn_ops, lib_attn,
              attn_rows),
+        # K2 on phase 15's paths at batch 8: ADVIT's ViTs (3 heads x 64,
+        # 8 x 8 patches + CLS) and the hold-out ModelAd (8 heads x 16)
+        *(Case("attention_fwd", f"({BATCH * h},{n},{n},{d})",
+               fused_attention, attention_reference, attn(BATCH, h, n, d),
+               *sums, attn_ops, lib_attn, attn_rows)
+          for h, n, d in ((ADVIT_HEADS, ADVIT_TOKENS, 64),
+                          (HOLDOUT_HEADS, 150, 128 // HOLDOUT_HEADS))),
         Case("stem_conv", "(8,91,109,91)->C32", stem.stem_conv,
              stem._conv_reference, stem_in(BATCH, VOLUME), *conv, conv_ops,
              lib_stem, stem_direct(False)),
@@ -1360,23 +1403,24 @@ def serve(card, tag="serving", batch=BATCH, volume=VOLUME, warmup=WARMUP,
     return model, reference, launches
 
 
-def cross_check(model, reference, volume=VOLUME, tag="check"):
+def cross_check(model, reference, volume=VOLUME, tag="check", inputs=2):
     """Same weights, batch 2, float32: the card (kernels, TF32 off) against
     the CPU (plain path). Both sides compute in float32; they differ only in
     the order of float32 sums (and cuDNN's choice of conv algorithm), which
     keeps them within 1e-4 of the outputs' scale (3e-7 was measured on an
-    H100), while a wrong layout, tap or rounding step moves them by O(1)."""
+    H100), while a wrong layout, tap or rounding step moves them by O(1).
+    `inputs`: the model's volumes (1: the MRI alone)."""
     rng = np.random.default_rng(2)
-    mri, pet = (torch.from_numpy(rng.standard_normal((2, *volume, 1),
-                                                     dtype=np.float32))
-                for _ in range(2))
+    vols = [torch.from_numpy(rng.standard_normal((2, *volume, 1),
+                                                 dtype=np.float32))
+            for _ in range(2)][:inputs]
     def outputs(out):  # an adversarial model returns a triple
         return [t.float().cpu() for t in
                 ((out,) if isinstance(out, torch.Tensor) else out)]
 
     with torch.inference_mode():
-        card = outputs(model(mri.cuda(), pet.cuda()))
-        cpu = outputs(reference.eval()(mri, pet))
+        card = outputs(model(*(v.cuda() for v in vols)))
+        cpu = outputs(reference.eval()(*vols))
     for name, a, b in zip(("logits", "d_mri", "d_pet"), card, cpu,
                           strict=False):
         err = (a - b).abs().max().item()
@@ -1526,7 +1570,8 @@ def train(card, tag="train", batch_size=BATCH, volume=VOLUME,
     return launches
 
 
-def sgd_step(model, device, batch, adversarial=True, dtype=torch.float32):
+def sgd_step(model, device, batch, adversarial=True, dtype=torch.float32,
+             modalities=("MRI", "PET")):
     """One step of the port's train step with SGD (lr 1, no momentum, so
     each parameter update is minus its gradient), computing in `dtype`
     with float32 parameters: name -> tensor on the CPU for the three
@@ -1534,7 +1579,7 @@ def sgd_step(model, device, batch, adversarial=True, dtype=torch.float32):
     from transmf_ad_tpu_torch.train import create_state, make_train_step
 
     before = _snapshot(model)
-    aux = make_train_step(adversarial=adversarial)(
+    aux = make_train_step(modalities, adversarial=adversarial)(
         create_state(model, device, dtype, name="SGD", lr=1.0,
                      milestones=()), batch)
     out = {k: aux[k].float().cpu() for k in ("loss", "ce_loss", "ad_loss")}
@@ -1603,23 +1648,30 @@ def train_check(model_name="ad", volume=CHECK_VOLUME, **model_kw):
     update and every running statistic agree (`compare_steps`).
     `model_kw` (band_min_voxels=0: every 3x3x3 body conv through K8 and
     K9) goes to `build_model`. transformer_res runs with the flash gate
-    lowered, so its backward goes through K11 and K12."""
-    from transmf_ad_tpu_torch.models import ADVERSARIAL, build_model
+    lowered, so its backward goes through K11 and K12. ModelSingle takes
+    the MRI alone; ADVIT and Mnet are built for `volume`, their dropout
+    off as well."""
+    from transmf_ad_tpu_torch.models import (ADVERSARIAL, SINGLE_MODALITY,
+                                             build_model)
     from transmf_ad_tpu_torch.utils.weights import init_weights
 
     g = torch.Generator().manual_seed(5)
-    model = build_model(model_name, head_dropout=0.0, **model_kw)
+    model = build_model(model_name, head_dropout=0.0, vit_dropout=0.0,
+                        emb_dropout=0.0, input_shape=volume, **model_kw)
     init_weights(model, g)
     randomize_bn(model, g)
     batch = check_batch(5, volume)
     adversarial = model_name in ADVERSARIAL
+    mods = ("MRI",) if model_name in SINGLE_MODALITY else ("MRI", "PET")
     flash = model_name == "transformer_res"
     with flash_gate(FLASH_CHECK_GATE) if flash else contextlib.nullcontext():
-        cpu = sgd_step(copy.deepcopy(model), "cpu", batch, adversarial)
+        cpu = sgd_step(copy.deepcopy(model), "cpu", batch, adversarial,
+                       modalities=mods)
         perturbed = [sgd_step(copy.deepcopy(model), "cpu", perturb(batch, d),
-                              adversarial) for d in range(CHECK_DRAWS)]
+                              adversarial, modalities=mods)
+                     for d in range(CHECK_DRAWS)]
         before = _launches()
-        card = sgd_step(model, "cuda", batch, adversarial)
+        card = sgd_step(model, "cuda", batch, adversarial, modalities=mods)
     after = _launches()
     if flash and any(after[n] != before[n] + ATTENTION_CALLS for n in
                      ("flash_fwd", "flash_dq", "flash_dkv")):
@@ -1633,7 +1685,8 @@ def train_check(model_name="ad", volume=CHECK_VOLUME, **model_kw):
                                  "launch K8 and K9 for every body conv")
     rows = compare_steps(card, cpu, perturbed)
     within = sum(r[1] <= 1.0 for r in rows)
-    what = " ".join(["train check", *([model_name] if flash else []),
+    what = " ".join(["train check",
+                     *([model_name] if model_name != "ad" else []),
                      *([str(model_kw)] if model_kw else [])])
     print(f"[{what}] one SGD "
           f"step, full width, batch {CHECK_BATCH} x "
@@ -2248,7 +2301,7 @@ def _feeds_check(source, n_records):
               f"bit", flush=True)
 
 
-def _evaluate_check(root, ckpt, name, fold0):
+def _evaluate_check(root, ckpt, name, fold0, model="Transformer"):
     """Fold 0's best .pt scored by `cli/evaluate.py` on the card gives the
     fold's logged test metrics."""
     from transmf_ad_tpu_torch.cli import evaluate
@@ -2256,7 +2309,7 @@ def _evaluate_check(root, ckpt, name, fold0):
     (best,) = glob.glob(os.path.join(ckpt, name, "0",
                                      "best_label_net_model_*.pt"))
     m = evaluate.main(["--checkpoint", best, "--fold", "0",
-                       *_cli_flags(root, ckpt, "evaluate")])
+                       *_cli_flags(root, ckpt, "evaluate", model)])
     got = [m["loss"], m["accuracy"], m["sen"], m["spe"], m["f1"], m["auc"]]
     counts = all((a == b) or (np.isnan(a) and np.isnan(b))
                  for a, b in zip(got[1:5], fold0[1:5]))
@@ -2265,7 +2318,8 @@ def _evaluate_check(root, ckpt, name, fold0):
     if not (counts and close):
         raise AssertionError(f"evaluate: {got} from {best}, the fold logged "
                              f"{fold0}")
-    print(f"[k-fold, evaluate] cli/evaluate.py --fold 0 on {best}: {got}; "
+    print(f"[k-fold, evaluate] cli/evaluate.py --model {model} --fold 0 on "
+          f"{best}: {got}; "
           f"fold 0 logged {fold0} (counts equal, loss and AUC within 1e-5)",
           flush=True)
 
@@ -2410,6 +2464,154 @@ def kfold_check(card):
     return launches, cnn
 
 
+def _fold0_counts(n_records, drop_last):
+    """(train steps, of them ragged, eval batches) of fold 0 of the k-fold
+    split over 1 + 1 epochs at batch BATCH: 25 train pairs, 7 validation,
+    8 test of 40."""
+    from transmf_ad_tpu_torch.train.kfold import (kfold_split,
+                                                  train_val_split)
+
+    tr, te = next(kfold_split(n_records, KFOLD_FOLDS, KFOLD_SEED))
+    tr, va = train_val_split(tr, KFOLD_SEED)
+    per_epoch = (len(tr) // BATCH if drop_last
+                 else math.ceil(len(tr) / BATCH))
+    ragged = 0 if drop_last or len(tr) % BATCH == 0 else 2
+    evals = 2 * math.ceil(len(va) / BATCH) + math.ceil(len(te) / BATCH)
+    return 2 * per_epoch, ragged, evals
+
+
+def _zoo_run(tag, main, flags, exact, log_dir):
+    """A CLI's `main` in this process with the counts at 0: the kernels of
+    `exact` launched exactly that often, every other kernel never, each
+    launch in its rule's variant; the result's losses and accuracies
+    finite and the run's log complete. Returns (result, launches,
+    seconds)."""
+    from transmf_ad_tpu_torch.ops import KERNELS
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = main(flags)
+    seconds = time.perf_counter() - t0
+    launches = _launches()
+    took = _require_variants(tag, FAST)
+    _require_launches(tag, launches, [n for n, c in exact.items() if c],
+                      {k.name: exact.get(k.name, 0) for k in KERNELS})
+    folds = np.array(res["folds"] if isinstance(res, dict) else [res])
+    if folds.shape != (1, 6) or not np.isfinite(folds[:, :2]).all():
+        raise AssertionError(f"{tag}: result {res}")
+    log_path = os.path.join(log_dir, "log.txt")
+    log = open(log_path).read()
+    missing = [t for t in ("Training Results", "Validation Results",
+                           "Test Results") if t not in log]
+    if missing:
+        raise AssertionError(f"{tag}: {log_path} lacks {missing}")
+    print(f"[{tag}] {seconds:.1f} s on {torch.cuda.get_device_name(0)}: "
+          f"test {folds[0].round(4).tolist()}; epoch vols/s (as the "
+          f"Trainer logs them) {_epoch_rates(log_path)}; launches "
+          f"{ {n: c for n, c in launches.items() if c} }, variants {took}",
+          flush=True)
+    return res, launches, seconds
+
+
+def zoo_cross_check(model_name, volume, **model_kw):
+    """`cross_check` of a model with seeded weights at its full geometry."""
+    from transmf_ad_tpu_torch.models import SINGLE_MODALITY, build_model
+    from transmf_ad_tpu_torch.utils.weights import init_weights
+
+    g = torch.Generator().manual_seed(3)
+    reference = build_model(model_name, input_shape=volume, **model_kw)
+    init_weights(reference, g)
+    randomize_bn(reference, g)
+    cross_check(copy.deepcopy(reference).cuda(), reference, volume,
+                f"check, {model_name} {model_kw or ''} at {volume}",
+                1 if model_name in SINGLE_MODALITY else 2)
+
+
+def zoo_check(card):
+    """Phase 15: the baselines' and the hold-out's entry points on the card
+    (see the module's docstring). Returns the launch counts of its four CLI
+    runs by name."""
+    from transmf_ad_tpu_torch.cli import (kfold_train_ADVIT,
+                                          kfold_train_Mnet,
+                                          kfold_train_single,
+                                          train_adversarial)
+    from transmf_ad_tpu_torch.data import make_synthetic_adni
+
+    n = 2 * KFOLD_PER_CLASS
+    laps = [("start", time.perf_counter())]
+    runs, seconds = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        roots = {shape: make_synthetic_adni(
+            os.path.join(tmp, "x".join(map(str, shape))),
+            n_per_group=KFOLD_PER_CLASS, shape=shape, groups=("CN", "AD"),
+            seed=1, workers=os.cpu_count() or 1)
+            for shape in (VOLUME, ADVIT_VOLUME)}
+        laps.append(("trees", time.perf_counter()))
+        ckpt = os.path.join(tmp, "checkpoints")
+
+        def flags(name, shape=VOLUME, model="Transformer", folds="0"):
+            return _cli_flags(roots[shape], ckpt, name, model, folds)
+
+        steps, ragged, evals = _fold0_counts(n, drop_last=False)
+        if not ragged:
+            raise AssertionError("zoo: fold 0 of ModelSingle has no ragged "
+                                 "train batch")
+        tag = "k-fold CLI, ModelSingle"
+        single, runs[tag], seconds[tag] = _zoo_run(
+            tag, kfold_train_single.main, flags("single"),
+            {"stem_conv_stats": steps, "stem_dw": steps, "stem_conv": evals,
+             "affine_act_pool": 4 * (steps + evals),
+             "affine_act_pool_bwd": 4 * steps},
+            os.path.join(ckpt, "single", "0"))
+        _evaluate_check(roots[VOLUME], ckpt, "single", single["folds"][0],
+                        model="single")
+        laps.append(("ModelSingle", time.perf_counter()))
+
+        steps, _, evals = _fold0_counts(n, drop_last=True)
+        tag = "k-fold CLI, ADVIT"
+        _, runs[tag], seconds[tag] = _zoo_run(
+            tag, kfold_train_ADVIT.main, flags("advit", ADVIT_VOLUME),
+            {"attention_fwd": ADVIT_CALLS * (steps + evals)},
+            os.path.join(ckpt, "advit", "0"))
+        laps.append(("ADVIT", time.perf_counter()))
+        tag = "k-fold CLI, Mnet"
+        _, runs[tag], seconds[tag] = _zoo_run(
+            tag, kfold_train_Mnet.main, flags("mnet"), {},
+            os.path.join(ckpt, "mnet", "0"))
+        laps.append(("Mnet", time.perf_counter()))
+
+        # the hold-out's 60 / 20 / 20 of 40: 24 / 8 / 8, one epoch
+        steps, evals = 24 // BATCH, 2
+        forwards = steps + evals
+        tag = "hold-out CLI, ModelAd heads 8"
+        _, runs[tag], seconds[tag] = _zoo_run(
+            tag, train_adversarial.main,
+            flags("holdout", folds="") + ["--stage2_epochs", "0"],
+            {"stem_conv_stats": 2 * steps, "stem_dw": 2 * steps,
+             "stem_conv": 2 * evals, "token_pool": forwards,
+             "attention_fwd": ATTENTION_CALLS * forwards,
+             "affine_act_pool": 8 * forwards,
+             "affine_act_pool_bwd": 8 * steps},
+            os.path.join(ckpt, "holdout"))
+        laps.append(("hold-out", time.perf_counter()))
+    reset_counts()
+    zoo_cross_check("single", VOLUME)
+    zoo_cross_check("advit", ADVIT_PAD)
+    zoo_cross_check("mnet", VOLUME)
+    zoo_cross_check("ad", VOLUME, heads=HOLDOUT_HEADS)
+    laps.append(("card vs CPU", time.perf_counter()))
+    train_check("single")
+    train_check("advit", ADVIT_CHECK)
+    train_check("mnet", CHECK_VOLUME, **MNET_CHECK)
+    laps.append(("train checks", time.perf_counter()))
+    spent = ", ".join(f"{name} {t - t_before:.1f}" for (_, t_before), (name, t)
+                      in zip(laps, laps[1:]))
+    print(f"[zoo] phase seconds {laps[-1][1] - laps[0][1]:.1f} ({spent}); "
+          f"CLI runs {({k: round(v, 1) for k, v in seconds.items()})} on "
+          f"{card}", flush=True)
+    return runs
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", nargs="+", default=(), metavar="KERNEL",
@@ -2453,7 +2655,7 @@ def main(argv=None) -> int:
     reset_launch_counts()  # phase 3 launched "column" on purpose
     lap("kernel checks")
     if only:
-        print(f"chip_smoke: --only {' '.join(only)}: phases 4-14 not run, "
+        print(f"chip_smoke: --only {' '.join(only)}: phases 4-15 not run, "
               "no result", flush=True)
         return 0
     side = {f"{name} at {keys} keys": round(times[name, label], 4)
@@ -2513,13 +2715,15 @@ def main(argv=None) -> int:
     kfold, kfold_cnn = kfold_check(card)
     reset_counts()
     lap("k-fold")
+    zoo = zoo_check(card)
+    lap("zoo")
     runs = {"serving": serving, "train": trained,
             "serving, full resolution": full_serving,
             "train, full resolution": full_trained,
             tag: res_serving,
             "train, full resolution, transformer_res": res_trained,
             "learning check": learned, "k-fold CLI": kfold,
-            "k-fold CLI, CNN": kfold_cnn}
+            "k-fold CLI, CNN": kfold_cnn, **zoo}
     print(f"[launches] {runs}", flush=True)
     spent = ", ".join(f"{name} {t - t_before:.1f}" for (_, t_before), (name, t)
                       in zip(laps, laps[1:]))

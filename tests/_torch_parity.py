@@ -12,6 +12,7 @@ transformer layers.
 
 import contextlib
 
+import flax.linen
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -134,6 +135,21 @@ def model(name, port_kw=None, **overrides):
     return j_build_model(name, use_pallas=True, **kw), v, port
 
 
+def zoo_model(name, shape, port, **jax_kw):
+    """(JAX model `name` with Pallas on, its randomised variables
+    initialised on (1, *shape, 1) volumes, `port` loaded with the same
+    weights) for the models whose parameters depend on the volume (ADVIT,
+    Mnet) or that take one volume (single). `jax_kw` go to the JAX
+    build_model."""
+    x = jnp.zeros((1, *shape, 1), jnp.float32)
+    xs = (x,) if name == "single" else (x, x)
+    v = jax.jit(j_build_model(name, use_pallas=False, **jax_kw).init)(
+        jax.random.key(2), *xs)
+    v = randomize_bn(v, seed=4)
+    port.load_state_dict(state_dict_from_jax(v, name), strict=True)
+    return j_build_model(name, use_pallas=True, **jax_kw), v, port
+
+
 def model_ad(port_kw=None, **overrides):
     """`model("ad", ...)`."""
     return model("ad", port_kw, **overrides)
@@ -163,3 +179,89 @@ def flash_route(min_keys):
         mp.setattr(j_ops, "flash_attention", j_spy)
         mp.setattr(t_flash, "flash_fwd", spy)
         yield calls
+
+
+class _NoDropout(flax.linen.Module):
+    """flax Dropout's signature, returning its input."""
+    rate: float = 0.0
+    broadcast_dims: tuple = ()
+    deterministic: bool = None
+
+    def __call__(self, x, deterministic=None, rng=None):
+        return x
+
+
+@contextlib.contextmanager
+def no_dropout():
+    """Every flax Dropout the JAX package builds while a function is traced
+    under it passes its input through: the baselines hard-code their rates
+    (ADVIT's ViT 0.1, Mnet's head 0.5), and a train-mode forward can only
+    be held against the port's with both sides' dropout off. Trace through
+    a fresh `jax.jit`."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(flax.linen, "Dropout", _NoDropout)
+        yield
+
+
+def train_grads(jmodel, v, port, inputs, name, seed=0, draws=0,
+                eps=1e-6, out_shape=None):
+    """A train-mode forward (BatchNorm batch statistics) of the JAX model
+    (traced under `no_dropout`) and of the port model (built with its
+    dropout 0) on the same float32 `inputs`, and the gradients of
+    sum(logits * w) for a seeded w of `out_shape` ((B, 2) by default).
+    `name`: the model's `state_dict_from_jax` key, or a function of the
+    JAX variables giving the port's state_dict. Returns (JAX logits, port logits, JAX
+    {name: gradient or updated running statistic}, the port's, {name: the
+    largest distance of a JAX result on inputs multiplied by (1 + eps *
+    N(0, 1)) from the unperturbed one, over `draws` such inputs}), the
+    dicts under the port's state_dict names, "logits" included. The spread
+    measures how far float32 rounding alone moves each result (the
+    conditioning rule of `tests/test_torch_fullres_step.py`)."""
+    to_port = (name if callable(name) else
+               lambda tree: state_dict_from_jax(tree, name))
+    w = np.random.default_rng(seed).standard_normal(
+        out_shape or (inputs[0].shape[0], 2)).astype(np.float32)
+
+    def loss(params, *xs):
+        out, upd = jmodel.apply({"params": params,
+                                 "batch_stats": v["batch_stats"]}, *xs,
+                                train=True, mutable=["batch_stats"])
+        return jnp.sum(out * w), (out, upd["batch_stats"])
+
+    with no_dropout():
+        fn = jax.jit(jax.grad(loss, has_aux=True))
+
+        def run(xs):
+            grads, (out, stats) = fn(v["params"], *map(jnp.asarray, xs))
+            res = to_port({"params": grads, "batch_stats": stats})
+            res["logits"] = torch.from_numpy(np.array(out))
+            return res
+
+        ref = run(inputs)
+        rng = np.random.default_rng(seed + 1)
+        spread = {k: 0.0 for k in ref}
+        for _ in range(draws):
+            other = run([x * (1 + eps * rng.standard_normal(x.shape))
+                         .astype(np.float32) for x in inputs])
+            for k in ref:
+                spread[k] = max(spread[k],
+                                float((other[k] - ref[k]).abs().max()))
+    got_out = port(*(torch.from_numpy(x) for x in inputs), train=True)
+    (got_out * torch.from_numpy(w)).sum().backward()
+    got = {k: p.grad for k, p in port.named_parameters()}
+    got.update((k, b) for k, b in port.named_buffers() if "running" in k)
+    got["logits"] = got_out.detach()
+    assert got.keys() == ref.keys()
+    return ref, got, spread
+
+
+def hold_train_grads(ref, got, spread, slack=3.0):
+    """Each of `train_grads`' results within 1e-4 of max(1, its largest
+    magnitude) plus `slack` times its spread."""
+    for k, r in ref.items():
+        r = r.numpy()
+        tol = 1e-4 * max(1.0, float(np.abs(r).max())) + slack * spread[k]
+        err = float(np.abs(got[k].numpy() - r).max())
+        assert err <= tol, (  # a NaN fails too
+            f"{k}: {err} > {tol} (of which {slack} x {spread[k]} from the "
+            "perturbed inputs)")

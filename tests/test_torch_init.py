@@ -2,12 +2,14 @@
 initializers, by the distribution of the draws (the bits differ: torch's
 generator against `jax.random`).
 
-Over SEEDS seeds of each package, per tensor of ModelAd and ModelCNNAd
-(named by the JAX tree through `map_state_dict`): conv kernels He-normal
-over fan_out (mean 0, std sqrt(2 / (Cout * 27))); conv biases and every
-Linear weight and bias U(+-1/sqrt(fan_in)) (inside the bound, std
-bound/sqrt(3)); `to_q` / `to_kv` without a bias on both sides; BatchNorm and
-LayerNorm weights 1 and biases 0, running means 0 and variances 1, exactly.
+Over SEEDS seeds of each package, per tensor of ModelAd, ModelCNNAd,
+ModelSingle, ADVIT and Mnet (named by the JAX tree through
+`map_state_dict`): conv kernels He-normal over fan_out (mean 0, std
+sqrt(2 / (Cout * taps))); conv biases and every Linear weight and bias
+U(+-1/sqrt(fan_in)) (inside the bound, std bound/sqrt(3)); `to_q` / `to_kv`
+(ADVIT's fused `to_qkv`) without a bias on both sides; a ViT's CLS token
+and positional embedding N(0, 0.02); BatchNorm and LayerNorm weights 1 and
+biases 0, running means 0 and variances 1, exactly.
 A moment is held within 6 standard errors of the pooled draws (for a normal
 sample the relative error of the variance is sqrt(2 / n), for a uniform one
 sqrt(0.8 / n)), the port's and JAX's both.
@@ -26,13 +28,19 @@ from transmf_ad_tpu_torch.models import build_model
 from transmf_ad_tpu_torch.utils.weights import init_weights
 
 SEEDS = 6
-ARCH = {"ad": dict(dim=32, depth=1, heads=2), "cnn_ad": dict(dim=32)}
+# each model's build_model keywords, and the volume its JAX init sees
+ARCH = {"ad": (dict(dim=32, depth=1, heads=2), (16, 16, 16)),
+        "cnn_ad": (dict(dim=32), (16, 16, 16)),
+        "single": (dict(dim=32), (16, 16, 16)),
+        "advit": ({}, (32, 32, 79)),
+        "mnet": (dict(spatial_kernel=3, spatial_pool=2), (25, 31, 25))}
 
 
 def _port_draws(name):
+    kw, shape = ARCH[name]
     out = []
     for seed in range(SEEDS):
-        m = build_model(name, **ARCH[name])
+        m = build_model(name, input_shape=shape, **kw)
         init_weights(m, torch.Generator().manual_seed(seed))
         params, stats = map_state_dict(
             {k: t.detach() for k, t in m.state_dict().items()}, name)
@@ -41,12 +49,14 @@ def _port_draws(name):
 
 
 def _jax_draws(name):
-    jm = j_build_model(name, use_pallas=False, **ARCH[name])
-    x = jnp.zeros((1, 16, 16, 16, 1), jnp.float32)
+    kw, shape = ARCH[name]
+    jm = j_build_model(name, use_pallas=False, **kw)
+    x = jnp.zeros((1, *shape, 1), jnp.float32)
+    xs = (x,) if name == "single" else (x, x)
     init = jax.jit(jm.init)
     out = []
     for seed in range(SEEDS):
-        v = init(jax.random.key(seed), x, x)
+        v = init(jax.random.key(seed), *xs)
         out.append({**_flat("params", v["params"]),
                     **_flat("stats", v["batch_stats"])})
     return out
@@ -63,6 +73,8 @@ def _rule(key, shape):
     leaf, owner = path[-1], path[-2]
     if col == "stats":
         return "const", 0.0 if leaf == "mean" else 1.0
+    if leaf in ("cls_token", "pos_embedding"):
+        return "normal", 0.02
     if owner.startswith(("BatchNorm", "LayerNorm")):
         return "const", 1.0 if leaf == "scale" else 0.0
     if owner.startswith("ConvBNAct"):
@@ -80,7 +92,7 @@ def _fan_in_bound(draw, key):
     return 1.0 / np.sqrt(fan_in)
 
 
-@pytest.mark.parametrize("name", ["ad", "cnn_ad"])
+@pytest.mark.parametrize("name", sorted(ARCH))
 def test_init_distributions(name):
     port, ref = _port_draws(name), _jax_draws(name)
     assert port[0].keys() == ref[0].keys()

@@ -110,9 +110,13 @@ def test_options_parse_readme_command(tmp_path, capsys):
 
 
 def test_unported_variants_raise():
-    for variant in ("single", "advit", "mnet"):
-        with pytest.raises(NotImplementedError, match="item 7"):
+    """Every variant of the JAX package is ported: only a name it does not
+    know raises, as there."""
+    for variant in ("sfcn", "ADVIT", ""):
+        with pytest.raises(ValueError, match="unknown variant"):
             kfold._variant_spec(variant, config.Options())
+        with pytest.raises(ValueError, match="unknown variant"):
+            j_kfold._variant_spec(variant, j_config.Options())
 
 
 FLAGS = ["--task", "ADCN", "--model", "Transformer", "--batch_size", "2",

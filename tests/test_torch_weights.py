@@ -91,7 +91,53 @@ def test_wrong_shape_raises(variables):
 
 
 def test_unported_model_raises(variables):
-    with pytest.raises(ValueError, match="ported models are 'ad'"):
-        state_dict_from_jax(variables, model="single")
-    with pytest.raises(ValueError, match="unported"):
-        build_model("single")
+    """All eight models are ported: a name outside the registry raises in
+    the bridge and in build_model, as in the JAX package's."""
+    for name in ("sfcn", "vit", "model_ad"):
+        with pytest.raises(ValueError, match="unknown model"):
+            state_dict_from_jax(variables, model=name)
+        with pytest.raises(ValueError, match="unknown model"):
+            build_model(name)
+        with pytest.raises(ValueError, match="unknown model"):
+            j_build_model(name)
+
+
+# the baselines' JAX keywords and the volume their JAX init sees (their
+# trees depend on it: ADVIT's token count, Mnet's head width)
+ZOO = {"single": (dict(dim=16), (16, 16, 16)),
+       "advit": ({}, (32, 32, 79)),
+       "mnet": (dict(spatial_kernel=3, spatial_pool=2), (25, 31, 25))}
+
+
+@pytest.mark.parametrize("name", sorted(ZOO))
+def test_inverse_of_map_state_dict_zoo(name):
+    """ModelSingle, ADVIT and Mnet: the round trip through JAX's
+    map_state_dict gives back the variables exactly, and the port's model
+    built for the same volume takes the state_dict strictly."""
+    kw, shape = ZOO[name]
+    x = jnp.zeros((1, *shape, 1), jnp.float32)
+    xs = (x,) if name == "single" else (x, x)
+    v = jax.jit(j_build_model(name, use_pallas=False, **kw).init)(
+        jax.random.key(0), *xs)
+    _assert_round_trip(v, name)
+    sd = state_dict_from_jax(v, name)
+    port = build_model(name, input_shape=shape, **kw)
+    assert sd.keys() == port.state_dict().keys()
+    port.load_state_dict(sd, strict=True)
+
+
+def test_advit_reference_file_loads_without_its_mlp_head():
+    """A reference ADVIT state_dict carries each ViT's `mlp_head`, which
+    the CLS-latent reading leaves dead: the Trainer's loader skips it (as
+    JAX's import does) and still requires every other key."""
+    from transmf_ad_tpu_torch.train.trainer import _load_model
+
+    port = build_model("advit", input_shape=(32, 32, 79))
+    sd = {k: torch.randn_like(t) for k, t in port.state_dict().items()}
+    sd["vit_mri.mlp_head.0.weight"] = torch.zeros(2, 192)
+    sd["vit_pet.mlp_head.0.bias"] = torch.zeros(2)
+    _load_model(port, sd)
+    assert torch.equal(port.vit_pet.pos_embedding, sd["vit_pet.pos_embedding"])
+    del sd["vit_mri.cls_token"]
+    with pytest.raises(RuntimeError, match="missing"):
+        _load_model(port, sd)

@@ -8,16 +8,22 @@ run, reference: kfold_train_adversarial.py:229-250):
       --checkpoint 'checkpoints/EXP/0/best_label_*.pt' [--fold 0]
 
 `--checkpoint` is a glob of `.pt` files (the last match in sorted order is
-taken); the other flags are the training CLI's. Without `--fold` every
-record of the task is scored, as the JAX package's `evaluate.py` does; with
-`--fold F` the test indices of fold F of the k-fold split the training run
-used (`--num_folds`, the task's seed). Volumes are cached in the training
-run's transfer dtype, so a checkpoint's logged test metrics come back.
+taken); the other flags are the training CLI's. `--model` is Transformer
+(ModelAd), CNN (ModelCNNAd) or any key of the model registry, as in the JAX
+package's `evaluate.py`; the volumes are read as the model's k-fold driver
+reads them: MRI alone for 'single', padded to (128, 128, 79) for 'advit'
+and to (91, 109, 91) for 'mnet' (the JAX package's `evaluate.py` pads
+nothing, so it cannot score an ADVIT checkpoint). Without `--fold` every
+record of the task is scored; with `--fold F` the test indices of fold F
+of the k-fold split the training run used (`--num_folds`, the task's
+seed). Volumes are cached in the training run's transfer dtype, so a
+checkpoint's logged test metrics come back.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import glob
 import sys
 
@@ -38,9 +44,15 @@ def main(argv=None) -> dict:
     extra.add_argument("--fold", type=int, default=None)
     ns, rest = extra.parse_known_args(argv)
     opt = Option().parse(rest)
+    model = {"Transformer": "ad", "CNN": "cnn_ad"}.get(opt.model, opt.model)
+    variant = model if model in ("single", "advit", "mnet") else "adversarial"
+    # the adversarial spec names its model by --model; it is replaced below
+    spec = dict(_variant_spec(variant, dataclasses.replace(
+        opt, model="Transformer")), model=model)
 
     records = ADNI(opt.dataroot, "ADNI.csv", opt.task).data_dict
-    source = VolumeSource(records, dtype=transfer_dtype(opt))
+    source = VolumeSource(records, keys=spec["modalities"],
+                          pad_to=spec["pad_to"], dtype=transfer_dtype(opt))
     seed = task_seed(opt)
     indices = None
     if ns.fold is not None:
@@ -52,8 +64,8 @@ def main(argv=None) -> dict:
     if not paths:
         raise SystemExit(f"no checkpoint matches {ns.checkpoint}")
 
-    cfg = _make_trainer_cfg(opt, _variant_spec("adversarial", opt),
-                            f"{opt.checkpoints_dir}/{opt.name}", seed)
+    cfg = _make_trainer_cfg(opt, spec, f"{opt.checkpoints_dir}/{opt.name}",
+                            seed)
     trainer = Trainer(cfg, Logger(cfg.save_dir))
     m = trainer.evaluate_from_checkpoint(loader, paths[-1])
     print(_fmt_metrics(m))

@@ -3,31 +3,38 @@
 `build_model(name, **overrides)` mirrors transmf_ad_tpu/models/__init__.py:
 fusion models get dim, depth, heads and dropout, and default dim_head to
 dim // heads and mlp_dim to dim * 4, as the reference's k-fold training
-scripts do; then every keyword the class's constructor does not take is
-dropped, so that callers can pass one config to every model; the CNN
-models get dim alone. Ported so far: 'ad', 'transformer',
-'transformer_res', 'cnn' and 'cnn_ad'. `ADVERSARIAL` lists the ported
-models that return (logits, d_mri, d_pet) triples; the others return
-logits.
+scripts do; 'cnn', 'cnn_ad' and 'single' get dim; ADVIT (a 192-wide ViT)
+and Mnet get none of them. Then every keyword the class's constructor does
+not take is dropped, so that callers can pass one config to every model.
+ADVIT and Mnet take the padded volume's `input_shape`, which fixes their
+token grid and head width (the JAX modules infer both from the first
+input). All eight models of the JAX registry are ported. `ADVERSARIAL`
+lists the models that return (logits, d_mri, d_pet) triples, the others
+return logits; `SINGLE_MODALITY` those that take the MRI alone.
 """
 
 from __future__ import annotations
 
 import inspect
 
+from .advit import ADVIT, ViTEncoder  # noqa: F401
+from .misepynet import MiSePyNet, Mnet, SliceCNN, SpatialCNN  # noqa: F401
 from .transmf import (  # noqa: F401
     ModelAd,
     ModelCNN,
     ModelCNNAd,
+    ModelSingle,
     ModelTransformer,
     ModelTransformerRes,
 )
 
 ADVERSARIAL = {"cnn_ad", "ad"}
+SINGLE_MODALITY = {"single"}
 
-_REGISTRY = {"cnn": ModelCNN, "transformer": ModelTransformer,
+_REGISTRY = {"single": ModelSingle, "cnn": ModelCNN,
+             "transformer": ModelTransformer,
              "transformer_res": ModelTransformerRes, "cnn_ad": ModelCNNAd,
-             "ad": ModelAd}
+             "ad": ModelAd, "advit": ADVIT, "mnet": Mnet}
 _FUSION_MODELS = {"transformer", "transformer_res", "ad"}
 
 
@@ -47,14 +54,14 @@ def build_model(name: str, dim: int = 128, depth: int = 3, heads: int = 4,
     package."""
     key = name.lower()
     if key not in _REGISTRY:
-        raise ValueError(f"unknown or unported model {name!r}; ported: "
+        raise ValueError(f"unknown model {name!r}; known: "
                          f"{sorted(_REGISTRY)}")
     cls = _REGISTRY[key]
     if key in _FUSION_MODELS:
         kw.setdefault("dim_head", dim // heads)
         kw.setdefault("mlp_dim", dim * 4)
         kw.update(dim=dim, depth=depth, heads=heads, dropout=dropout)
-    else:
+    elif key in ("cnn", "cnn_ad", "single"):
         kw.update(dim=dim)
     takes = inspect.signature(cls).parameters
     return cls(**{k: v for k, v in kw.items() if k in takes})

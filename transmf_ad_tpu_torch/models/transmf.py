@@ -1,8 +1,8 @@
 """The task models: `ModelAd`, `ModelTransformer`, `ModelTransformerRes`,
-`ModelCNN` and `ModelCNNAd`.
+`ModelCNN`, `ModelCNNAd` and `ModelSingle`.
 
 Port of transmf_ad_tpu/models/transmf.py (`_MLPHead`, `_FusionHead`,
-`_Discriminator` and five models). `ModelAd`, the paper model: dual sNet
+`_Discriminator` and six models). `ModelAd`, the paper model: dual sNet
 encoders, a gradient-reversal discriminator on the pooled features,
 cross-modal transformer fusion and a 4*dim pooling head -> (logits, d_mri,
 d_pet).
@@ -13,9 +13,12 @@ tokens and classifies with a BatchNorm-less head -> logits.
 `ModelCNN` fuses late: each encoder's map averaged over space, the two
 vectors concatenated, an MLP head -> logits; `ModelCNNAd` adds
 `ModelAd`'s discriminator on those vectors -> (logits, d_mri, d_pet).
+`ModelSingle` is one sNet on the MRI alone, averaged over space, and an MLP
+head -> logits.
 Module names follow the reference torch models (`mri_cnn`, `pet_cnn`,
 `D.{0,1,3}`, `fuse_transformer`, `fc_cls.{0,1,4,5,8}`, or `fc_cls.{0,3,6}`
-without BatchNorm, `fc.{0,2}` / `fc_cls.{0,2}` for the MLP heads).
+without BatchNorm, `fc.{0,2}` / `fc_cls.{0,2}` for the MLP heads, and
+`cnn` for ModelSingle's encoder).
 
 Volumes are channels-last (B, X, Y, Z, 1); the whole forward computes in
 the volumes' dtype with float32 parameters. `train=True` takes BatchNorm
@@ -191,6 +194,23 @@ class ModelCNN(nn.Module):
             [global_avg_pool(self.mri_cnn(mri, train, bn_mask)),
              global_avg_pool(self.pet_cnn(pet, train, bn_mask))], dim=-1)
         return self.fc(fused)
+
+
+class ModelSingle(nn.Module):
+    """Single-modality classifier (reference: mymodel.py:13-37): an sNet,
+    averaged over space, MLP dim -> 64 -> 2 -> logits."""
+
+    def __init__(self, dim: int = 128,
+                 band_min_voxels: int = BAND_MIN_VOXELS):
+        super().__init__()
+        self.cnn = SNet(dim, band_min_voxels)
+        self.fc = _MLPHead(dim, 64)
+
+    def forward(self, img, train: bool = False, bn_mask=None,
+                generator=None):
+        """img: (B, X, Y, Z, 1) -> logits (B, 2). The model has no dropout;
+        `generator` is taken for the train step's sake."""
+        return self.fc(global_avg_pool(self.cnn(img, train, bn_mask)))
 
 
 class ModelCNNAd(nn.Module):

@@ -7,6 +7,7 @@ from .attention import (  # noqa: F401
     FeedForward,
     LayerNorm,
     Linear,
+    PositionalEncoding1D,
     Transformer,
 )
 from .batchnorm import (  # noqa: F401
@@ -16,9 +17,16 @@ from .batchnorm import (  # noqa: F401
 )
 from .dropout import Dropout, dropout  # noqa: F401
 from .blocks import (  # noqa: F401
+    SFCN,
     SNet,
     conv_bn_act,
     global_avg_pool,
     tokens_from_volume,
 )
 from .grl import revgrad  # noqa: F401
+from .losses import (  # noqa: F401
+    adversarial_loss,
+    cross_entropy,
+    fa_loss,
+    supcon_loss,
+)

@@ -1,7 +1,8 @@
 """Transformer blocks and the cross-modal fusion module.
 
 Port of transmf_ad_tpu/nn/attention.py (`FeedForward`, `Attention`,
-`Transformer`, `CrossTransformer`, `CrossTransformerModAvg`). Module names
+`Transformer`, `CrossTransformer`, `CrossTransformerModAvg`, and the
+library extra `PositionalEncoding1D`). Module names
 follow the reference torch code (`layers.{i}.{0,1}.norm`, `.fn.to_q`,
 `.fn.to_kv`, `.fn.to_out.0`, `.fn.net.{0,3}`), which
 `transmf_ad_tpu.utils.torch_import` maps.
@@ -13,6 +14,8 @@ LayerNorm normalises in float32 and casts back. Dropout acts only with
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -70,8 +73,9 @@ class FeedForward(nn.Module):
 
 class Attention(nn.Module):
     """Multi-head attention, queries from x, keys/values from `context`
-    (x itself when None). No q/kv bias; k and v are the first and second
-    halves of `to_kv`; scale dim_head ** -0.5."""
+    (x itself when None; with `kv_include_self`, x followed by the
+    context). No q/kv bias; k and v are the first and second halves of
+    `to_kv`; scale dim_head ** -0.5."""
 
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 64,
                  dropout: float = 0.0):
@@ -82,8 +86,11 @@ class Attention(nn.Module):
         self.to_kv = Linear(dim, 2 * inner, bias=False)
         self.to_out = nn.Sequential(Linear(inner, dim), Dropout(dropout))
 
-    def forward(self, x, context=None, train: bool = False, generator=None):
+    def forward(self, x, context=None, train: bool = False, generator=None,
+                kv_include_self: bool = False):
         ctx = x if context is None else context
+        if kv_include_self:
+            ctx = torch.cat([x, ctx], dim=1)
         b, n, _ = x.shape
         m = ctx.shape[1]
         h, dh = self.heads, self.dim_head
@@ -175,3 +182,26 @@ class CrossTransformerModAvg(nn.Module):
             mri = mri_enc(mri, context=pet, **kw) + mri
             pet = pet_enc(pet, context=mri, **kw) + pet
         return fused_token_pool(mri, pet)
+
+
+class PositionalEncoding1D(nn.Module):
+    """1D sinusoidal positional encoding (reference: models/networks.py:
+    178-211, a library extra no model uses): (B, N, *) tokens ->
+    (B, N, channels), sin then cos of position * 10000^(-2i / ch), in the
+    tokens' dtype."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.channels = channels
+
+    def forward(self, tokens):
+        b, n = tokens.shape[:2]
+        ch = int(math.ceil(self.channels / 2) * 2)
+        dev = tokens.device
+        inv_freq = 1.0 / (10000 ** (torch.arange(0, ch, 2, dtype=torch.float32,
+                                                 device=dev) / ch))
+        ang = torch.arange(n, dtype=torch.float32, device=dev)[:, None] \
+            * inv_freq[None]
+        emb = torch.cat([torch.sin(ang), torch.cos(ang)],
+                        dim=-1)[:, :self.channels]
+        return emb[None].expand(b, n, self.channels).to(tokens.dtype)

@@ -1,15 +1,19 @@
 """3D-CNN encoder blocks, channels-last (B, X, Y, Z, C), eval and training.
 
-Port of transmf_ad_tpu/nn/blocks.py (`ConvBNAct`, `SNet`,
+Port of transmf_ad_tpu/nn/blocks.py (`ConvBNAct`, `SNet`, `SFCN`,
 `global_avg_pool`, `tokens_from_volume`). A conv block runs its conv
 without bias and folds the bias into the BatchNorm shift; the BN apply and
-LeakyReLU then fuse into the stage-end pool kernel:
+the activation (LeakyReLU in sNet, ReLU in SFCN and the baselines) then
+fuse into the stage-end pool kernel:
 
   stage 1      stem kernel K3 (Cin = 1), then K4 max with (Z*C,) lane vectors
   stages 2, 3  F.conv3d, then K4 max with (C,) vectors
   stage 4      F.conv3d (3^3, then 1^3), then K4 mean with (C,) vectors
 
-Blocks without a pool apply the affine + LeakyReLU unfused. In training the
+Blocks without a pool apply the affine + activation unfused, and so do the
+blocks of ADVIT and Mnet, whose (1, 1, 2) and (p, p, 1) windows their
+models pool with `F.max_pool3d`, as the JAX package pools them with
+`nn.max_pool`. In training the
 stem is kernel K5 (the conv plus its BatchNorm sums, backward K6) and the
 pools' backward is K7.
 
@@ -38,26 +42,31 @@ from ..ops.pool3d import (avg_pool3d_2x2_affine_act,
 from ..ops.stem import stem_conv, stem_conv_stats
 from .batchnorm import ManualBN, bn_affine_reference
 
-_SLOPE = 0.01  # LeakyReLU negative slope (reference sNet)
+# the negative slope of each activation (JAX's ConvBNAct `act`)
+SLOPES = {"leaky_relu": 0.01, "relu": 0.0, "none": 1.0}
 BAND_MIN_VOXELS = 400_000  # the JAX package's TRANSMF_BAND_CONV_MIN_VOX
 
 
 def conv_bn_act(x, conv: nn.Conv3d, bn: ManualBN, pool=None,
-                slope: float = _SLOPE, train: bool = False, bn_mask=None, *,
-                band_min_voxels: int):
-    """ConvBNAct: conv (bias-free) -> BN -> LeakyReLU [-> 2^3 pool].
+                act: str = "leaky_relu", train: bool = False, bn_mask=None,
+                *, band_min_voxels: int):
+    """ConvBNAct: conv (bias-free) -> BN -> activation [-> 2^3 pool].
 
     x: (B, X, Y, Z, Cin) in the compute dtype; the conv weight is cast to
-    it. pool: None, 'max' or 'avg'. train: BN takes batch statistics (the
-    producer kernel's sums, or mask-weighted moments when `bn_mask` (B,) is
-    given) and moves its running statistics. band_min_voxels: a 3^3 conv
-    with Cin > 1 over at least this many voxels takes the band-conv
-    kernel."""
+    it, and the conv's stride and padding are the module's (padding k // 2
+    is JAX's "SAME" for the odd kernels here, 0 its "VALID"). pool: None,
+    'max' or 'avg'. act: a key of `SLOPES`. train: BN takes batch
+    statistics (the producer kernel's sums, or mask-weighted moments when
+    `bn_mask` (B,) is given) and moves its running statistics.
+    band_min_voxels: a 3^3 SAME stride-1 conv with Cin > 1 over at least
+    this many voxels takes the band-conv kernel; the stem kernel takes a
+    3^3 SAME stride-1 conv from one channel."""
+    slope = SLOPES[act]
     w = conv.weight.to(x.dtype)
-    cube = conv.kernel_size == (3, 3, 3)
+    cube = (conv.kernel_size == (3, 3, 3) and conv.stride == (1, 1, 1)
+            and conv.padding == (1, 1, 1))
     stem = x.shape[-1] == 1 and cube
-    band = (not stem and cube and conv.stride == (1, 1, 1)
-            and conv.padding == (1, 1, 1)
+    band = (not stem and cube
             and x.shape[1] * x.shape[2] * x.shape[3] >= band_min_voxels)
     stats = None
     if stem:
@@ -80,7 +89,8 @@ def conv_bn_act(x, conv: nn.Conv3d, bn: ManualBN, pool=None,
         # a channels-last-3d view in and out: F.conv3d keeps the layout, so
         # the permutes around it are views, not copies
         wt = w.contiguous(memory_format=torch.channels_last_3d)
-        y = F.conv3d(x.permute(0, 4, 1, 2, 3), wt, padding=conv.padding)
+        y = F.conv3d(x.permute(0, 4, 1, 2, 3), wt, stride=conv.stride,
+                     padding=conv.padding)
         y = y.permute(0, 2, 3, 4, 1).contiguous()
     if bn_mask is not None:
         stats = None  # the producer sums cover padded duplicates too
@@ -94,6 +104,14 @@ def conv_bn_act(x, conv: nn.Conv3d, bn: ManualBN, pool=None,
     if pool == "avg":
         return avg_pool3d_2x2_affine_act(y, scale, shift, slope)
     return bn_affine_reference(y, scale, shift, slope)
+
+
+def max_pool_window(x, window):
+    """torch MaxPool3d(window, window) (VALID, floor) of a channels-last
+    (B, X, Y, Z, C) tensor: the windows JAX's baselines pool with
+    `nn.max_pool`, which are XLA ops there, not Pallas kernels."""
+    y = F.max_pool3d(x.permute(0, 4, 1, 2, 3), window, window)
+    return y.permute(0, 2, 3, 4, 1)
 
 
 # (stage, conv slot, BN slot) of each block in the reference sNet, and the
@@ -133,6 +151,32 @@ class SNet(nn.Module):
             x = conv_bn_act(x, slots[cs], slots[bs], pool, train=train,
                             bn_mask=bn_mask,
                             band_min_voxels=self.band_min_voxels)
+        return x
+
+
+class SFCN(nn.Module):
+    """5-block fully-convolutional encoder (reference: models/networks.py:
+    64-110, a library extra no model uses): four 3^3 SAME ConvBNAct blocks
+    with ReLU and a 2^3 max pool, then a 1^3 ConvBNAct with ReLU. The
+    first conv is the stem kernel's (K3, in training K5 with backward K6),
+    the pools K4 / K7 at slope 0. Blocks are `blocks.{i}.{conv,bn}`."""
+
+    def __init__(self, channels=(32, 64, 128, 128, 64)):
+        super().__init__()
+        blocks, cin = [], 1
+        for i, ch in enumerate(channels):
+            k = 3 if i < 4 else 1
+            blocks.append(nn.ModuleDict({
+                "conv": nn.Conv3d(cin, ch, k, padding=k // 2),
+                "bn": ManualBN(ch)}))
+            cin = ch
+        self.blocks = nn.ModuleList(blocks)
+
+    def forward(self, x, train: bool = False, bn_mask=None):
+        for i, blk in enumerate(self.blocks):
+            x = conv_bn_act(x, blk["conv"], blk["bn"],
+                            "max" if i < 4 else None, "relu", train, bn_mask,
+                            band_min_voxels=BAND_MIN_VOXELS)
         return x
 
 

@@ -1,22 +1,33 @@
-"""K-fold experiment driver.
+"""K-fold and hold-out experiment drivers.
 
-Port of transmf_ad_tpu/train/kfold.py's `run_kfold('adversarial')`, which
-reproduces the reference driver topology (reference:
-kfold_train_adversarial.py:23-274): task-pinned seeds (ADCN -> 42,
-pMCIsMCI -> 996, default 1, --randint True -> random 1..1000), a shuffled
-5-fold split of the ADNI index, a further 80/20 train/val split of each
-fold's training indices, per-fold training with best-val-accuracy
-checkpointing, test evaluation with the best weights, and a final
-mean +- std aggregation of [loss, acc, sen, spe, f1, auc].
+Port of transmf_ad_tpu/train/kfold.py, which reproduces the reference
+driver topology (reference: kfold_train_adversarial.py:23-274 and
+siblings): task-pinned seeds (ADCN -> 42, pMCIsMCI -> 996, default 1,
+--randint True -> random 1..1000), a shuffled 5-fold split of the ADNI
+index, a further 80/20 train/val split of each fold's training indices,
+per-fold training with best-val-accuracy checkpointing, test evaluation
+with the best weights, and a final mean +- std aggregation of [loss, acc,
+sen, spe, f1, auc].
+
+Driver variants (one per reference entry point):
+ - 'adversarial': ModelAd / ModelCNNAd, triple loss, drop_last train
+   loader                      (reference: kfold_train_adversarial.py)
+ - 'single':      ModelSingle, MRI only, no drop_last, so the last train
+   batch may be ragged and take the masked step
+                               (reference: kfold_train_single.py:64,74-76)
+ - 'advit':       ADVIT, volumes padded to (128, 128, 79), Adam 1e-4 with
+   no scheduler, never augments
+                               (reference: kfold_train_ADVIT.py:63,84-85,225)
+ - 'mnet':        Mnet, padded to (91, 109, 91), SGD 1e-3 momentum 0.9,
+   MultiStep[6, 21]            (reference: kfold_train_Mnet.py:64,85-86,226)
+
+`run_holdout` is the hold-out driver (reference: train_adversarial.py).
 
 The splits are sklearn's `KFold(n_splits, shuffle=True, random_state=seed)`
 and `train_test_split(test_size=0.2, random_state=seed)`, written in numpy
 with the same draws (`np.random.RandomState(seed)`), so that the port needs
 no sklearn; a test holds them to sklearn's indices. One RAM-cached
 VolumeSource is shared across folds.
-
-The variants 'single', 'advit' and 'mnet' (and `run_holdout`) wait for
-their models (ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -25,7 +36,7 @@ import math
 import os
 import random
 import warnings
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -111,14 +122,28 @@ def task_seed(opt: Options) -> int:
 def _variant_spec(variant: str, opt: Options) -> Dict:
     if variant == "adversarial":
         model = {"Transformer": "ad", "CNN": "cnn_ad"}[opt.model]
-        return dict(model=model, drop_last=True,
+        return dict(model=model, pad_to=None, drop_last=True,
                     optimizer=opt.optimizer, lr=opt.lr, momentum=0.0,
                     milestones=None, epochs=opt.epochs, aug=opt.aug_bool,
                     modalities=("MRI", "PET"))
-    if variant in ("single", "advit", "mnet"):
-        raise NotImplementedError(
-            f"run_kfold variant {variant!r} is not ported yet: its model "
-            "waits for ROADMAP.md Queue 1 item 7")
+    if variant == "single":
+        return dict(model="single", pad_to=None, drop_last=False,
+                    optimizer=opt.optimizer, lr=opt.lr, momentum=0.0,
+                    milestones=None, epochs=opt.epochs, aug=opt.aug_bool,
+                    modalities=("MRI",))
+    # the ADVIT and Mnet reference drivers hard-code 40 epochs
+    # (kfold_train_ADVIT.py:225, kfold_train_Mnet.py:226), the default
+    # stage1 + stage2 sum, so opt.epochs keeps that default and stays
+    # overridable
+    if variant == "advit":
+        return dict(model="advit", pad_to=(128, 128, 79), drop_last=True,
+                    optimizer="Adam", lr=1e-4, momentum=0.0, milestones=(),
+                    epochs=opt.epochs, aug=False, modalities=("MRI", "PET"))
+    if variant == "mnet":
+        return dict(model="mnet", pad_to=(91, 109, 91), drop_last=True,
+                    optimizer="SGD", lr=1e-3, momentum=0.9, milestones=(6, 21),
+                    epochs=opt.epochs, aug=opt.aug_bool,
+                    modalities=("MRI", "PET"))
     raise ValueError(f"unknown variant {variant!r}")
 
 
@@ -149,14 +174,18 @@ def _make_trainer_cfg(opt: Options, spec: Dict, fold_dir: str,
     )
 
 
-def run_kfold(opt: Options,
-              variant: str = "adversarial") -> Dict[str, List[float]]:
+def run_kfold(opt: Options, variant: str = "adversarial",
+              pad_to_override=None) -> Dict[str, List[float]]:
     """Train and test every fold (or the `--folds` subset) and aggregate.
-    Returns the mean, std and per-fold [loss, acc, sen, spe, f1, auc], the
-    seed, and the type name of each fold's train feed."""
+    `pad_to_override` replaces the variant's padded volume (a small plane
+    for ADVIT on the CPU). Returns the mean, std and per-fold [loss, acc,
+    sen, spe, f1, auc], the seed, and the type name of each fold's train
+    feed."""
     save_dir = os.path.join(opt.checkpoints_dir, opt.name)
     logger_main = Logger(save_dir)
     spec = _variant_spec(variant, opt)
+    if pad_to_override is not None:
+        spec["pad_to"] = pad_to_override
 
     data = ADNI(opt.dataroot, "ADNI.csv", opt.task).data_dict
     extra: List = []
@@ -164,7 +193,7 @@ def run_kfold(opt: Options,
         extra = ADNI(opt.dataroot, "ADNI.csv", "ADCN").data_dict
 
     source = VolumeSource(data + extra, keys=spec["modalities"],
-                          dtype=transfer_dtype(opt))
+                          pad_to=spec["pad_to"], dtype=transfer_dtype(opt))
     extra_idx = list(range(len(data), len(data) + len(extra)))
 
     seed = task_seed(opt)
@@ -229,3 +258,82 @@ def run_kfold(opt: Options,
         "seed": seed,
         "feeds": feeds,
     }
+
+
+def partition_dataset(data: List, ratios,
+                      seed: Optional[int] = None) -> List[List]:
+    """Fraction-based split (monai's partition_dataset with shuffle=True,
+    reference: datasets/__init__.py:44,79): the indices shuffled by
+    `np.random.default_rng(seed)`, parts of round(n * r / sum) items, the
+    last taking the rest."""
+    idx = np.arange(len(data))
+    np.random.default_rng(seed).shuffle(idx)
+    total = float(sum(ratios))
+    parts, start = [], 0
+    for i, r in enumerate(ratios):
+        n = (int(round(len(data) * r / total)) if i < len(ratios) - 1
+             else len(data) - start)
+        parts.append([data[j] for j in idx[start:start + n]])
+        start += n
+    return parts
+
+
+def run_holdout(opt: Options) -> Optional[List[float]]:
+    """Hold-out driver (reference: train_adversarial.py:17-198): ModelAd or
+    ModelCNNAd with heads=8 (reference: train_adversarial.py:30-31).
+
+    Dataset modes (reference: datasets/__init__.py:35-98):
+     - 'ADNI':   60/20/20 partition of ADNI.csv (the default)
+     - 'ADNI12': train / val 80/20 of ADNI1_modality_complete.csv, test on
+                 ADNI2_modality_complete.csv
+     - task 'pretrain': 80/20 of the ADCN records with seed 965 and no test
+                 set, so the result is None
+    The partitions are saved as train.npy / val.npy / test.npy (arrays of
+    record dicts, allow_pickle) under the run's directory. Returns the
+    test [loss, acc, sen, spe, f1, auc]."""
+    save_dir = os.path.join(opt.checkpoints_dir, opt.name)
+    logger = Logger(save_dir)
+    seed = task_seed(opt)
+    if opt.dataset == "ADNI12":
+        adni1 = ADNI(opt.dataroot, "ADNI1_modality_complete.csv", opt.task)
+        adni2 = ADNI(opt.dataroot, "ADNI2_modality_complete.csv", opt.task)
+        train_d, val_d = partition_dataset(adni1.data_dict, [0.8, 0.2],
+                                           seed=seed)
+        test_d = adni2.data_dict
+    elif opt.task == "pretrain":
+        data = ADNI(opt.dataroot, "ADNI.csv", "ADCN").data_dict
+        train_d, val_d = partition_dataset(data, [0.8, 0.2], seed=965)
+        test_d = []
+    else:
+        data = ADNI(opt.dataroot, "ADNI.csv", opt.task).data_dict
+        train_d, val_d, test_d = partition_dataset(data, [0.6, 0.2, 0.2],
+                                                   seed=seed)
+    for name, part in (("train", train_d), ("val", val_d), ("test", test_d)):
+        np.save(os.path.join(save_dir, f"{name}.npy"), part,
+                allow_pickle=True)
+
+    source = VolumeSource(train_d + val_d + test_d,
+                          dtype=transfer_dtype(opt))
+    n1, n2 = len(train_d), len(train_d) + len(val_d)
+    train_loader = Loader(source, list(range(n1)), opt.batch_size,
+                          shuffle=True, drop_last=True, seed=seed,
+                          prefetch=opt.prefetch)
+    val_loader = Loader(source, list(range(n1, n2)), opt.batch_size)
+    test_loader = (Loader(source, list(range(n2, len(source))),
+                          opt.batch_size) if test_d else None)
+
+    cfg = TrainerConfig(
+        model={"Transformer": "ad", "CNN": "cnn_ad"}[opt.model],
+        dim=opt.dim, depth=opt.trans_enc_depth, heads=8,
+        dropout=opt.dropout, optimizer=opt.optimizer, lr=opt.lr,
+        weight_decay=opt.weight_decay, epochs=opt.epochs,
+        aug=opt.aug_bool, aug_exact=str2bool(opt.aug_exact), seed=seed,
+        save_dir=save_dir, dtype=opt.dtype or "auto",
+        resume=opt.resume == "True", device=opt.device)
+    weights = dataset_weights(train_d)
+    class_weights = weights if opt.use_class_weights == "True" else None
+    trainer = Trainer(cfg, logger)
+    res = trainer.fit(train_loader, val_loader, test_loader,
+                      class_weights=class_weights)
+    logger.print_message(f"Total params: {trainer.param_count()}")
+    return res

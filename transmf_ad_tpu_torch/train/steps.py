@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from ..data.transforms import AugmentConfig, augment, draw_params
-from ..nn.losses import cross_entropy
+from ..nn.losses import adversarial_loss, cross_entropy
 from ..serving import resolve_dtype
 from .metrics import MetricState
 from .optim import build_optimizer
@@ -122,15 +122,9 @@ def make_train_step(modalities: Sequence[str] = ("MRI", "PET"),
                     generator=state.generator)
         if adversarial:
             logits, d_mri, d_pet = out
-            b = labels.shape[0]
             ce_n, ce_d = _ce_sums(logits, labels, class_weights, mask)
-            # discriminator: MRI labeled 1, PET labeled 0, averaged
-            # (reference: kfold_train_adversarial.py:120-125)
-            ones = torch.ones(b, dtype=torch.long, device=device)
-            mri_n, n = _ce_sums(d_mri, ones, mask=mask)
-            pet_n, _ = _ce_sums(d_pet, torch.zeros_like(ones), mask=mask)
             ce = ce_n / ce_d
-            ad = (mri_n / n + pet_n / n) / 2.0
+            ad = adversarial_loss(d_mri, d_pet, mask)
             loss = ce + ad
             aux = {"logits": logits, "d_mri": d_mri, "d_pet": d_pet,
                    "ce_loss": ce, "ad_loss": ad}

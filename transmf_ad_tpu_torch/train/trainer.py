@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..data.transforms import AugmentConfig
-from ..models import ADVERSARIAL, build_model
+from ..models import ADVERSARIAL, SINGLE_MODALITY, build_model
 from ..serving import resolve_dtype as _resolve_auto
 from ..utils.logging import Logger
 from ..utils.weights import init_weights
@@ -124,11 +124,10 @@ class Trainer:
                                "train on the CPU")
         self.logger = logger or Logger(cfg.save_dir)
         self.dtype = resolve_dtype(cfg.dtype, self.device)
-        self.model = build_model(
-            cfg.model, dim=cfg.dim, depth=cfg.depth, heads=cfg.heads,
-            dropout=cfg.dropout, **(cfg.model_kwargs or {}))
+        self.model = None  # built by init_state, which sees the volumes
         self.adversarial = cfg.model in ADVERSARIAL
-        self.modalities: Tuple[str, ...] = ("MRI", "PET")
+        self.modalities: Tuple[str, ...] = (
+            ("MRI",) if cfg.model in SINGLE_MODALITY else ("MRI", "PET"))
         self.state = None
         self.lr_schedule = None
         self._eval_step = None
@@ -136,12 +135,19 @@ class Trainer:
     # ----- setup -----
 
     def init_state(self, sample_batch, steps_per_epoch: int):
-        """Fresh weights from `cfg.seed` (`utils/weights.py::init_weights`,
-        drawn on the CPU, so every device starts from the same weights),
-        the optimizer and scheduler, and the generator of the train step's
-        draws, seeded from `cfg.seed + 1` as the JAX package's train key
-        is. `sample_batch` is unused: torch modules know their shapes."""
+        """The model, built for `sample_batch`'s volume shape (ADVIT's token
+        grid and Mnet's head width follow it, as the JAX package's init
+        infers them from its sample inputs), fresh weights from `cfg.seed`
+        (`utils/weights.py::init_weights`, drawn on the CPU, so every
+        device starts from the same weights), the optimizer and scheduler,
+        and the generator of the train step's draws, seeded from
+        `cfg.seed + 1` as the JAX package's train key is."""
         cfg = self.cfg
+        self.model = build_model(
+            cfg.model, dim=cfg.dim, depth=cfg.depth, heads=cfg.heads,
+            dropout=cfg.dropout,
+            input_shape=tuple(sample_batch[self.modalities[0]].shape[1:4]),
+            **(cfg.model_kwargs or {}))
         milestones = (MILESTONES[cfg.optimizer] if cfg.milestones is None
                       else cfg.milestones)
         self.lr_schedule = multistep_schedule(cfg.lr, milestones,
@@ -536,11 +542,13 @@ def _fmt_metrics(m: dict) -> str:
 def _load_model(model, sd):
     """Load a state_dict by the reference's names into `model`: every
     parameter and running statistic must be there; a reference file's
-    BatchNorm `num_batches_tracked` counters are the only extra keys
-    allowed."""
+    BatchNorm `num_batches_tracked` counters and its ViTs' `mlp_head`
+    (dead under the CLS-latent reading of ADVIT, which the JAX package's
+    import skips too) are the only extra keys allowed."""
     res = model.load_state_dict(sd, strict=False)
     extra = [k for k in res.unexpected_keys
-             if not k.endswith("num_batches_tracked")]
+             if not k.endswith("num_batches_tracked")
+             and ".mlp_head." not in k]
     if res.missing_keys or extra:
         raise RuntimeError(f"checkpoint does not match the model: missing "
                            f"{res.missing_keys}, unexpected {extra}")

@@ -1,10 +1,12 @@
 """Weights for the port: reference initialisation and the JAX weight bridge.
 
 `state_dict_from_jax` turns the JAX package's `{"params", "batch_stats"}`
-tree into this package's `state_dict`. It is the exact inverse of
-`transmf_ad_tpu.utils.torch_import.map_state_dict`, with the same layout
-transforms: DHWIO -> OIDHW conv kernels, Dense (in, out) -> Linear
-(out, in), BN scale/bias/mean/var -> weight/bias/running_mean/running_var.
+tree of any of the eight models into this package's `state_dict`. It is
+the exact inverse of `transmf_ad_tpu.utils.torch_import.map_state_dict`,
+with the same layout transforms: DHWIO -> OIDHW conv kernels, Dense (in,
+out) -> Linear (out, in), BN scale/bias/mean/var ->
+weight/bias/running_mean/running_var, and ADVIT's to_q / to_kv fused into
+vit_pytorch's one to_qkv weight.
 It uses numpy only, so it runs without jax (the arrays may be jax or
 numpy arrays).
 """
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.advit import ViTEncoder
 from ..nn.batchnorm import BatchNormMasked, ManualBN
 from ..nn.blocks import _PLAN
 
@@ -51,16 +54,23 @@ def _put(sd, prefix, entries):
         sd[f"{prefix}.{k}"] = _f32(v)
 
 
+def _conv_bn_blocks(params, stats, pairs) -> dict:
+    """ConvBNAct_0..N-1 -> the (conv prefix, BN prefix) pairs, in order."""
+    sd: dict = {}
+    for i, (conv, bn) in enumerate(pairs):
+        blk = f"ConvBNAct_{i}"
+        _put(sd, conv, _conv(params[blk]))
+        _put(sd, bn, _bn(params[blk]["BatchNorm_0"],
+                         stats[blk]["BatchNorm_0"]))
+    return sd
+
+
 def snet_state_dict(params, stats, prefix: str) -> dict:
     """SNet tree (ConvBNAct_0..6) -> reference sNet names
     {prefix}.conv{1..4}.{slot}."""
-    sd: dict = {}
-    for i, (stage, cs, bs, *_) in enumerate(_PLAN):
-        blk = params[f"ConvBNAct_{i}"]
-        _put(sd, f"{prefix}.{stage}.{cs}", _conv(blk))
-        _put(sd, f"{prefix}.{stage}.{bs}",
-             _bn(blk["BatchNorm_0"], stats[f"ConvBNAct_{i}"]["BatchNorm_0"]))
-    return sd
+    return _conv_bn_blocks(params, stats, [
+        (f"{prefix}.{stage}.{cs}", f"{prefix}.{stage}.{bs}")
+        for stage, cs, bs, *_ in _PLAN])
 
 
 def _transformer_state_dict(tr, base: str) -> dict:
@@ -96,7 +106,8 @@ def cross_transformer_state_dict(params, prefix: str = "",
     return sd
 
 
-PORTED = ("ad", "transformer", "transformer_res", "cnn", "cnn_ad")
+PORTED = ("single", "cnn", "cnn_ad", "transformer", "transformer_res",
+          "ad", "advit", "mnet")
 
 
 def state_dict_from_jax(variables, model: str = "ad") -> dict:
@@ -104,17 +115,23 @@ def state_dict_from_jax(variables, model: str = "ad") -> dict:
     package's state_dict (float32 CPU tensors), ready for
     `load_state_dict`."""
     if model not in PORTED:
-        raise ValueError("state_dict_from_jax: ported models are 'ad', "
-                         "'transformer', 'transformer_res', 'cnn' and "
-                         f"'cnn_ad', got {model!r}")
+        raise ValueError(f"state_dict_from_jax: unknown model {model!r}; "
+                         f"known: {PORTED}")
     params, stats = variables["params"], variables["batch_stats"]
+    if model == "single":
+        sd = snet_state_dict(params["cnn"], stats["cnn"], "cnn")
+        _mlp_head(sd, "fc", params["fc"])
+        return sd
+    if model == "advit":
+        return _advit_state_dict(params, stats)
+    if model == "mnet":
+        return _mnet_state_dict(params, stats)
     sd: dict = {}
     for mod in ("mri_cnn", "pet_cnn"):
         sd.update(snet_state_dict(params[mod], stats[mod], mod))
     if model in ("cnn", "cnn_ad"):  # Linear -> ReLU -> Linear head
         head = "fc" if model == "cnn" else "fc_cls"
-        _put(sd, f"{head}.0", _linear(params[head]["Dense_0"]))
-        _put(sd, f"{head}.2", _linear(params[head]["Dense_1"]))
+        _mlp_head(sd, head, params[head])
         if model == "cnn_ad":
             _discriminator(sd, params["D"], stats["D"])
         return sd
@@ -125,15 +142,24 @@ def state_dict_from_jax(variables, model: str = "ad") -> dict:
         for i, slot in enumerate((0, 3, 6)):
             _put(sd, f"fc_cls.{slot}", _linear(head[f"Dense_{i}"]))
         return sd
-    head_st = stats["fc_cls"]
-    _put(sd, "fc_cls.0", _linear(head["Dense_0"]))
-    _put(sd, "fc_cls.1", _bn(head["BatchNorm_0"], head_st["BatchNorm_0"]))
-    _put(sd, "fc_cls.4", _linear(head["Dense_1"]))
-    _put(sd, "fc_cls.5", _bn(head["BatchNorm_1"], head_st["BatchNorm_1"]))
-    _put(sd, "fc_cls.8", _linear(head["Dense_2"]))
+    _fusion_head(sd, "fc_cls", head, stats["fc_cls"])
     if model == "ad":
         _discriminator(sd, params["D"], stats["D"])
     return sd
+
+
+def _mlp_head(sd, prefix, p):
+    _put(sd, f"{prefix}.0", _linear(p["Dense_0"]))
+    _put(sd, f"{prefix}.2", _linear(p["Dense_1"]))
+
+
+def _fusion_head(sd, prefix, p, st):
+    """Dense_0..2 with BatchNorm_0..1 -> {prefix}.{0,1,4,5,8}."""
+    _put(sd, f"{prefix}.0", _linear(p["Dense_0"]))
+    _put(sd, f"{prefix}.1", _bn(p["BatchNorm_0"], st["BatchNorm_0"]))
+    _put(sd, f"{prefix}.4", _linear(p["Dense_1"]))
+    _put(sd, f"{prefix}.5", _bn(p["BatchNorm_1"], st["BatchNorm_1"]))
+    _put(sd, f"{prefix}.8", _linear(p["Dense_2"]))
 
 
 def _discriminator(sd, d, d_st):
@@ -142,13 +168,81 @@ def _discriminator(sd, d, d_st):
     _put(sd, "D.3", _linear(d["Dense_1"]))
 
 
+def _vit_state_dict(p, prefix: str) -> dict:
+    """ViTEncoder tree -> vit_pytorch 1.7.4 names; to_q and to_kv go into
+    one fused to_qkv weight, q rows first."""
+    sd: dict = {}
+    _put(sd, f"{prefix}.to_patch_embedding.1", _layernorm(p["LayerNorm_0"]))
+    _put(sd, f"{prefix}.to_patch_embedding.2", _linear(p["Dense_0"]))
+    _put(sd, f"{prefix}.to_patch_embedding.3", _layernorm(p["LayerNorm_1"]))
+    _put(sd, prefix, {"cls_token": p["cls_token"],
+                      "pos_embedding": p["pos_embedding"]})
+    tr = p["Transformer_0"]
+    depth = sum(1 for k in tr if k.startswith("Attention_"))
+    for i in range(depth):
+        a, ff = tr[f"Attention_{i}"], tr[f"FeedForward_{i}"]
+        base = f"{prefix}.transformer.layers.{i}"
+        qkv = np.concatenate([np.asarray(a["to_q"]["kernel"]),
+                              np.asarray(a["to_kv"]["kernel"])], axis=1)
+        _put(sd, f"{base}.0", {"to_qkv.weight": qkv.T})
+        _put(sd, f"{base}.0.to_out.0", _linear(a["to_out"]))
+        _put(sd, f"{base}.0.norm", _layernorm(tr[f"LayerNorm_{2 * i}"]))
+        _put(sd, f"{base}.1.net.0", _layernorm(tr[f"LayerNorm_{2 * i + 1}"]))
+        _put(sd, f"{base}.1.net.1", _linear(ff["Dense_0"]))
+        _put(sd, f"{base}.1.net.4", _linear(ff["Dense_1"]))
+    _put(sd, f"{prefix}.transformer.norm",
+         _layernorm(tr[f"LayerNorm_{2 * depth}"]))
+    return sd
+
+
+def _advit_state_dict(params, stats) -> dict:
+    sd: dict = {}
+    for mod in ("mri", "pet"):
+        p = f"to_2d_{mod}"
+        sd.update(_conv_bn_blocks(params[p], stats[p], [
+            (f"{p}.0", f"{p}.1"), (f"{p}.4", f"{p}.5")]))
+        sd.update(_vit_state_dict(params[f"vit_{mod}"], f"vit_{mod}"))
+    _put(sd, "fc", _linear(params["fc"]))
+    return sd
+
+
+# Mnet's ConvBNAct_0..5 of a slice CNN in the reference's (stack, conv
+# slot, BN slot), and the spatial stack's three (conv slot, BN slot)
+_SLICE_SLOTS = (("conv1", "0", "1"), ("conv2", "0", "1"), ("conv2", "3", "4"),
+                ("conv3", "0", "1"), ("conv3", "3", "4"), ("conv3", "6", "7"))
+_SPATIAL_SLOTS = (("0", "1"), ("4", "5"), ("8", "9"))
+
+
+def _mnet_state_dict(params, stats) -> dict:
+    sd: dict = {}
+    for mod in ("mri", "pet"):
+        for view in ("axial", "col", "sag"):
+            p, s = params[mod], stats[mod]
+            pre = f"{mod}.slice_cnn_{view}"
+            sd.update(_conv_bn_blocks(
+                p[f"slice_{view}"], s[f"slice_{view}"],
+                [(f"{pre}.{c}.{ci}", f"{pre}.{c}.{bi}")
+                 for c, ci, bi in _SLICE_SLOTS]))
+            pre = f"{mod}.spatial_cnn_{view}.conv1"
+            st = "_StridedStack_0"
+            sd.update(_conv_bn_blocks(
+                p[f"spatial_{view}"][st], s[f"spatial_{view}"][st],
+                [(f"{pre}.{ci}", f"{pre}.{bi}") for ci, bi in _SPATIAL_SLOTS]))
+    _fusion_head(sd, "fc", params, stats)
+    return sd
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """The reference's initialisation, drawn from `generator`: conv kernels
     He-normal over fan_out, conv biases and Linear layers U(+-1/sqrt(fan_in)),
-    norms weight 1 / bias 0, running stats mean 0 / var 1. The model's
-    parameters must lie on the generator's device."""
+    norms weight 1 / bias 0, running stats mean 0 / var 1, a ViT's CLS
+    token and positional embedding N(0, 0.02). The model's parameters must
+    lie on the generator's device."""
     for m in model.modules():
+        if isinstance(m, ViTEncoder):
+            m.cls_token.normal_(0.0, 0.02, generator=generator)
+            m.pos_embedding.normal_(0.0, 0.02, generator=generator)
         if isinstance(m, nn.Conv3d):
             k = math.prod(m.kernel_size)
             m.weight.normal_(0.0, math.sqrt(2.0 / (m.out_channels * k)),
