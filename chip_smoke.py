@@ -168,6 +168,41 @@ before the final line:
             of ModelSingle, ADVIT (32x32x79) and Mnet (spatial kernel 3,
             pool 2) at 35x37x33. Printed: each run's seconds and epoch
             vols/s
+16. remat    per-block remat (`SNet(remat=True)`) at full resolution: the
+            rule wraps blocks 0, 1, 2 and 4 of each encoder at batch 6,
+            182x218x182; one float32 SGD step (TF32 off) with remat
+            against one without, for full-width ModelAd and
+            transformer_res: the train-check rule (the spread from 2 steps
+            on perturbed inputs), the running statistics within 1e-6 of
+            their scale (they move once); then bf16 steps without
+            augmentation at batch 6 and 12, with and without remat, each
+            model: ms/step (median of 3 after 2), peak memory, and the
+            largest batch estimated from the two peaks (not searched);
+            held: remat launches K5 2, K8 4 and K4 6 more times a step, no
+            other kernel more, every launch in its rule's variant
+17. data parallel  two ranks share the card through Gloo (NCCL refuses
+            two ranks on one device), each a child process of this script,
+            every child of the phase started at once (7 processes on the
+            card): (a) one float32 SGD step of full-width ModelAd on a global
+            batch of 8 at 91x109x91, 4 pairs a rank, against the
+            single-process step on the same pairs (the train-check rule;
+            the spread from 4 steps on perturbed inputs), the ranks'
+            parameters and running statistics bit-identical, each rank's
+            K5, K6 (2), K1 (1), K2 (6), K4 and K7 launched; then, once
+            the CLI runs of (b) and (c) have ended, 3 steps of one process
+            on 4 pairs and 3 steps of the ranks, each under the profiler
+            with the card to itself: ms/step and the collectives' host ms;
+            (b) `cli/kfold_train_adversarial.py`'s `main` on 2 ranks
+            (`--coordinator_address`, `--num_processes 2`,
+            `--process_id`; each child joins the Gloo group first, and the
+            CLI finds it up) over a synthetic tree of 40 ADCN pairs, bf16,
+            fold 0 of 1 + 1 epochs, with the device cache and with the
+            streaming feed (TRANSMF_CACHE_BUDGET_MB=0): both ranks finish
+            with the same state before the test, only rank 0 opens files
+            for writing under the checkpoints, and `cli/evaluate.py --fold
+            0` on the same ranks reproduces the fold's test metrics; (c)
+            the same CLI as one rank on NCCL (`--num_processes 1
+            --process_id 0`)
 
 The line before the last is a JSON object with one entry per kernel: `ms`,
 `plain_ms`, `bound_ms`, `bound_by` and `library_ms` belong to the bfloat16
@@ -175,8 +210,8 @@ run at the first shape listed for the kernel (K1's full-resolution case is
 under `full_resolution`, its launch floor under `launch_floor_ms`),
 `max_abs_err` is the largest over all its cases, `launches` its count over
 the six serving and train runs, the learning check, the two k-fold CLI
-runs of phase 14 and the four CLI runs of phase 15 together, each counted
-from zero. Before it a `[time]` line gives the
+runs of phase 14, the four CLI runs of phase 15, phase 16's bf16 runs and
+every rank of phase 17 together, each counted from zero. Before it a `[time]` line gives the
 seconds each group of phases took. The last line is
 {"ok": true, "device": {...}}.
 
@@ -245,6 +280,18 @@ ADVIT_PAD, ADVIT_VOLUME, ADVIT_CHECK = (128, 128, 79), (91, 109, 79), \
     (32, 32, 79)
 HOLDOUT_HEADS = 8
 MNET_CHECK = dict(spatial_kernel=3, spatial_pool=2)
+# phase 16, remat at full resolution: the bf16 runs' batches, warm-up and
+# timed steps, and the float32 check's steps on perturbed inputs; the
+# blocks the rule wraps at batch 6 (0, 1, 2 and 4 of each encoder) and the
+# forward launches a step they add: K5 once an encoder (block 0), K8 with
+# its sums twice (blocks 1 and 2), K4 three times (the pools of blocks 0, 2
+# and 4)
+REMAT_BATCHES, REMAT_WARMUP, REMAT_STEPS, REMAT_DRAWS = (6, 12), 2, 3, 2
+REMAT_BLOCKS = [0, 1, 2, 4]
+REMAT_EXTRA = {"stem_conv_stats": 2, "band_conv": 4, "affine_act_pool": 6}
+# phase 17, data parallel: the ranks that share the card, the step check's
+# global batch, the steps profiled after it, the children's time limit (s)
+DP_WORLD, DP_BATCH, DP_PROFILED, DP_TIMEOUT = 2, 8, 3, 300
 SERVING_KERNELS = ("token_pool", "attention_fwd", "stem_conv",
                    "affine_act_pool")
 TRAIN_KERNELS = ("token_pool", "attention_fwd", "affine_act_pool",
@@ -2612,12 +2659,555 @@ def zoo_check(card):
     return runs
 
 
+# ----- phase 16: remat -----
+
+def _remat_run(model_name, batch_size, remat, warmup=REMAT_WARMUP,
+               steps=REMAT_STEPS):
+    """Train steps of full-width `model_name` at `batch_size`,
+    182x218x182, bf16, no augmentation, with or without remat: (median
+    ms/step, peak GiB, launches per step, variants)."""
+    from transmf_ad_tpu_torch.models import ADVERSARIAL, build_model
+    from transmf_ad_tpu_torch.train import create_state, make_train_step
+    from transmf_ad_tpu_torch.utils.weights import init_weights
+
+    g = torch.Generator().manual_seed(3)
+    model = build_model(model_name, remat=remat)
+    init_weights(model, g)
+    randomize_bn(model, g)
+    state = create_state(model, "cuda", "auto", seed=0, name="Adam",
+                         lr=1e-4)
+    step = make_train_step(adversarial=model_name in ADVERSARIAL)
+    dg = torch.Generator(device="cuda").manual_seed(4)
+    batch = {"MRI": torch.rand(batch_size, *FULL_VOLUME, generator=dg,
+                               device="cuda"),
+             "PET": torch.rand(batch_size, *FULL_VOLUME, generator=dg,
+                               device="cuda"),
+             "label": torch.arange(batch_size, device="cuda") % 2}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, losses = [], []
+    for _ in range(warmup + steps):
+        t0 = time.perf_counter()
+        aux = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(aux["loss"]))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"remat {model_name} batch {batch_size}: "
+                             f"losses {losses}")
+    took = _require_variants(f"remat {model_name}", FAST)
+    launches = _launches()
+    per_step = {n: c / (warmup + steps) for n, c in launches.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del state, model, batch, aux, step
+    torch.cuda.empty_cache()
+    return 1e3 * float(np.median(times[warmup:])), peak, per_step, took, \
+        launches
+
+
+def _remat_f32_check(model_name):
+    """One float32 SGD step (TF32 off) of full-width `model_name` at batch
+    6, 182x218x182, with remat against one without, from the same weights
+    and inputs: the train-check rule (`compare_steps`, the spread from
+    REMAT_DRAWS steps without remat on perturbed inputs), and the running
+    statistics, which move once either way, within 1e-6 of max(1, their
+    magnitude)."""
+    from transmf_ad_tpu_torch.models import ADVERSARIAL, build_model
+    from transmf_ad_tpu_torch.utils.weights import init_weights
+
+    g = torch.Generator().manual_seed(5)
+    plain = build_model(model_name, head_dropout=0.0)
+    init_weights(plain, g)
+    randomize_bn(plain, g)
+    rematted = build_model(model_name, head_dropout=0.0, remat=True)
+    rematted.load_state_dict(plain.state_dict())
+    rng = np.random.default_rng(5)
+    batch = {k: torch.from_numpy(rng.random((FULL_BATCH, *FULL_VOLUME),
+                                            dtype=np.float32))
+             for k in ("MRI", "PET")}
+    batch["label"] = torch.arange(FULL_BATCH) % 2
+    adversarial = model_name in ADVERSARIAL
+
+    def run(model, b):
+        out = sgd_step(copy.deepcopy(model), "cuda", b, adversarial)
+        torch.cuda.empty_cache()
+        return out
+
+    ref = run(plain, batch)
+    perturbed = [run(plain, perturb(batch, d)) for d in range(REMAT_DRAWS)]
+    got = run(rematted, batch)
+    rows = compare_steps(got, ref, perturbed)
+    stats = [k for k in ref if "running" in k]
+    worst = max(float((got[k] - ref[k]).abs().max())
+                / max(1.0, float(ref[k].abs().max())) for k in stats)
+    if worst > 1e-6:
+        raise AssertionError(f"remat check {model_name}: a running "
+                             f"statistic moved by {worst} of its scale")
+    print(f"[remat check, {model_name}] one f32 SGD step at batch "
+          f"{FULL_BATCH} x {FULL_VOLUME}, remat against none: loss "
+          f"{float(got['loss']):.6f} vs {float(ref['loss']):.6f}; all "
+          f"{len(rows)} tensors within the train-check rule, closest "
+          f"{[(n, round(t, 3)) for t, _, n in rows[:3]]}; running "
+          f"statistics within {worst:.3g} of their scale", flush=True)
+
+
+def remat_check(card):
+    """Phase 16: per-block remat at full resolution (see the module's
+    docstring). Returns the launch counts of its bf16 runs."""
+    from transmf_ad_tpu_torch.models import build_model
+
+    wrapped = build_model("ad").mri_cnn.remat_blocks(
+        (FULL_BATCH, *FULL_VOLUME, 1))
+    if wrapped != REMAT_BLOCKS:
+        raise AssertionError(f"remat: the rule wraps blocks {wrapped}, "
+                             f"expected {REMAT_BLOCKS}")
+    for name in ("ad", "transformer_res"):
+        _remat_f32_check(name)
+    total = {}
+    table = {}
+    for name in ("ad", "transformer_res"):
+        for batch_size in REMAT_BATCHES:
+            per = {}
+            for remat in (False, True):
+                ms, peak, per[remat], took, launches = _remat_run(
+                    name, batch_size, remat)
+                table[name, batch_size, remat] = (ms, peak)
+                for k, v in launches.items():
+                    total[k] = total.get(k, 0) + v
+                print(f"[remat, {name}] batch {batch_size} x {FULL_VOLUME} "
+                      f"bf16, remat {remat}: {ms:.2f} ms/step (median of "
+                      f"{REMAT_STEPS} after {REMAT_WARMUP}), peak "
+                      f"{peak:.2f} GiB on {card}; variants {took}",
+                      flush=True)
+            extra = {k: per[True][k] - per[False][k] for k in per[True]
+                     if per[True][k] != per[False][k]}
+            if extra != REMAT_EXTRA:
+                raise AssertionError(
+                    f"remat {name} batch {batch_size}: extra launches a "
+                    f"step {extra}, expected {REMAT_EXTRA}")
+    free, total_mem = torch.cuda.mem_get_info()
+    for name in ("ad", "transformer_res"):
+        for remat in (False, True):
+            (_, p6), (_, p12) = (table[name, b, remat] for b in REMAT_BATCHES)
+            slope = (p12 - p6) / (REMAT_BATCHES[1] - REMAT_BATCHES[0])
+            base = p6 - REMAT_BATCHES[0] * slope
+            fits = int((total_mem / 2**30 - base) // slope)
+            print(f"[remat, {name}] remat {remat}: peak {p6:.2f} / "
+                  f"{p12:.2f} GiB at batch {REMAT_BATCHES}, {slope:.3f} "
+                  f"GiB a sample over {base:.2f}: the largest batch "
+                  f"estimated to fit {total_mem / 2**30:.1f} GiB is {fits} "
+                  f"(estimated, not searched)", flush=True)
+    print(f"[remat] each wrapped block (blocks {REMAT_BLOCKS} of each "
+          f"encoder) launches its forward kernels once more a step: "
+          f"{REMAT_EXTRA}, exact at batch {REMAT_BATCHES} for both models",
+          flush=True)
+    return total
+
+
+# ----- phase 17: data parallel -----
+
+def _spawn(args, log_path, env=None):
+    """A child process running this script with `args`, its output to
+    `log_path`."""
+    log = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, **(env or {})), stdout=log,
+        stderr=subprocess.STDOUT)
+    proc.log_path = log_path
+    log.close()
+    return proc
+
+
+def _wait_all(procs, timeout):
+    """Wait for every child; a failure or a run over `timeout` seconds kills
+    every child and raises with the end of their output."""
+    deadline = time.monotonic() + timeout
+    failed = None
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) \
+                    or time.monotonic() > deadline:
+                failed = "failed" if time.monotonic() <= deadline \
+                    else f"over {timeout} s"
+                break
+            time.sleep(0.1)
+        if failed is None and any(p.returncode for p in procs):
+            failed = "failed"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    if failed:
+        tails = [f"--- {p.log_path} (exit {p.returncode}) ---\n"
+                 + open(p.log_path).read()[-3000:] for p in procs]
+        raise AssertionError(f"data parallel: a child {failed}\n"
+                             + "\n".join(tails))
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _wait_for_file(path, timeout):
+    """Poll for `path` (the parent's go-ahead); raise after `timeout` s."""
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no {path} after {timeout} s")
+        time.sleep(0.05)
+
+
+def _profiled_steps(step, state, batch):
+    """Wall ms a step over DP_PROFILED steps under the profiler, and the
+    collectives it saw: {name: (calls a step, host ms a step)}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(DP_PROFILED):
+            step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / DP_PROFILED
+    coll = {}
+    for e in prof.key_averages():
+        if re.search(r"all_?reduce|broadcast|all_?gather|all_?to_?all",
+                     e.key, re.I):
+            coll[e.key] = (e.count / DP_PROFILED,
+                           e.cpu_time_total / 1e3 / DP_PROFILED)
+    return 1e3 * wall, coll
+
+
+def _dp_child_step(task, rank):
+    """A rank of phase 17 (a): one f32 SGD step on this rank's rows (its
+    results and launches); then, once the parent's go-ahead file exists
+    (the CLI runs have ended, so no other work shares the card), the
+    profiler's step and collective times over DP_PROFILED more steps."""
+    from transmf_ad_tpu_torch.models import build_model
+    from transmf_ad_tpu_torch.parallel import (init_distributed,
+                                               place_global, shard_state,
+                                               shutdown, world_group)
+    from transmf_ad_tpu_torch.train import create_state, make_train_step
+
+    init_distributed(f"localhost:{task['port']}", task["world"], rank,
+                     backend="gloo", device="cuda")
+    try:
+        model = build_model("ad", head_dropout=0.0)
+        model.load_state_dict(torch.load(task["weights"], weights_only=True))
+        before = _snapshot(model)
+        state = shard_state(create_state(model, "cuda", torch.float32,
+                                         name="SGD", lr=1.0, milestones=()),
+                            world_group())
+        batch = place_global(torch.load(task["batch"], weights_only=True),
+                             task["world"], rank)
+        step = make_train_step(group=world_group())
+        reset_counts()
+        aux = step(state, batch)
+        torch.cuda.synchronize()
+        launches, variants = _launches(), _require_variants("dp step", {})
+        out = {k: aux[k].float().cpu() for k in ("loss", "ce_loss",
+                                                 "ad_loss")}
+        after = _snapshot(model)
+        for k, v in after.items():
+            out[k if "running" in k else k + " update"] = (
+                v if "running" in k else v - before[k])
+        _wait_for_file(task["go"], DP_TIMEOUT)
+        step_ms, coll = _profiled_steps(step, state, batch)
+        torch.save({"out": out, "launches": launches, "variants": variants,
+                    "collectives": coll, "step_ms": step_ms},
+                   os.path.join(task["dir"], f"step_r{rank}.pt"))
+    finally:
+        shutdown()
+
+
+def _dp_child_cli(task, rank):
+    """A rank of phase 17 (b) or (c): the k-fold CLI's `main` with the
+    multi-process flags; the files this rank opened for writing under the
+    checkpoints, its state_dict before the test reloads the best weights,
+    the feed and the launches; then `cli/evaluate.py --fold 0` on the same
+    ranks, scoring fold 0's best `.pt`."""
+    from transmf_ad_tpu_torch.cli import evaluate, kfold_train_adversarial
+    from transmf_ad_tpu_torch.train import trainer as trainer_mod
+
+    root = os.path.realpath(task["ckpt"])
+    written = []
+
+    def hook(event, args):
+        if event == "open" and isinstance(args[0], (str, bytes)) and (
+                any(c in (args[1] or "") for c in "wax+")
+                or (args[2] or 0) & (os.O_WRONLY | os.O_RDWR | os.O_CREAT)):
+            path = os.path.realpath(os.fsdecode(args[0]))
+            if path.startswith(root):
+                written.append(os.path.relpath(path, root))
+
+    sys.addaudithook(hook)
+    save = torch.save  # writes through its own C++ file writer
+
+    def recorded_save(obj, f, *a, **kw):
+        hook("open", (f, "wb", 0))
+        return save(obj, f, *a, **kw)
+
+    torch.save = recorded_save
+    if task["backend"]:  # ranks sharing the card: the CLI finds it up
+        from transmf_ad_tpu_torch.parallel import init_distributed
+
+        init_distributed(f"localhost:{task['port']}", task["world"], rank,
+                         backend=task["backend"], device="cuda")
+    before_test = {}
+    load = trainer_mod.Trainer.load_checkpoint
+
+    def spy(self, path):
+        if not before_test:
+            before_test.update(_snapshot(self.state.model))
+        return load(self, path)
+
+    trainer_mod.Trainer.load_checkpoint = spy
+    reset_counts()
+    multi = ["--coordinator_address", f"localhost:{task['port']}",
+             "--num_processes", str(task["world"]), "--process_id",
+             str(rank)]
+    res = kfold_train_adversarial.main([*task["flags"], *multi])
+    launches, variants = _launches(), _require_variants("dp cli", FAST)
+    wrote = list(written)
+    (best,) = glob.glob(os.path.join(task["ckpt"], task["name"], "0",
+                                     "best_label_net_model_*.pt"))
+    m = evaluate.main(["--checkpoint", best, "--fold", "0",
+                       *task["eval_flags"], *multi])
+    torch.save = save
+    save({"res": res, "written": wrote, "state": before_test,
+          "launches": launches, "variants": variants,
+          "evaluate": [m["loss"], m["accuracy"], m["sen"], m["spe"],
+                       m["f1"], m["auc"]]},
+         os.path.join(task["dir"], f"{task['name']}_r{rank}.pt"))
+    from transmf_ad_tpu_torch.parallel import shutdown
+
+    shutdown()
+
+
+def dp_child(task_path, rank):
+    """Entry of a child process of phase 17."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(task_path) as f:
+        task = json.load(f)
+    {"step": _dp_child_step, "cli": _dp_child_cli}[task["kind"]](task, rank)
+    return 0
+
+
+def _dp_step_check(card, tmp, also=()):
+    """Phase 17 (a): one f32 step of full-width ModelAd on 2 ranks sharing
+    the card through Gloo against the single-process step on the same
+    global batch. `also`: children already running (the CLI runs). Once
+    they have ended, the single-process step on one rank's rows is timed,
+    then the ranks' steps, each with the card to itself."""
+    from transmf_ad_tpu_torch.models import build_model
+    from transmf_ad_tpu_torch.parallel import place_global
+    from transmf_ad_tpu_torch.train import create_state, make_train_step
+    from transmf_ad_tpu_torch.utils.weights import init_weights
+
+    g = torch.Generator().manual_seed(6)
+    model = build_model("ad", head_dropout=0.0)
+    init_weights(model, g)
+    randomize_bn(model, g)
+    torch.save(model.state_dict(), os.path.join(tmp, "weights.pt"))
+    rng = np.random.default_rng(6)
+    batch = {k: torch.from_numpy(rng.random((DP_BATCH, *VOLUME),
+                                            dtype=np.float32))
+             for k in ("MRI", "PET")}
+    batch["label"] = torch.arange(DP_BATCH) % 2
+    torch.save(batch, os.path.join(tmp, "batch.pt"))
+    task = os.path.join(tmp, "step.json")
+    with open(task, "w") as f:
+        json.dump({"kind": "step", "world": DP_WORLD, "port": _free_port(),
+                   "weights": os.path.join(tmp, "weights.pt"),
+                   "batch": os.path.join(tmp, "batch.pt"), "dir": tmp,
+                   "go": os.path.join(tmp, "go")}, f)
+    procs = [_spawn(["--dp-child", task, str(r)],
+                    os.path.join(tmp, f"step_r{r}.log"))
+             for r in range(DP_WORLD)]
+    try:  # the reference while the ranks run
+        ref = sgd_step(copy.deepcopy(model), "cuda", batch)
+        perturbed = [sgd_step(copy.deepcopy(model), "cuda", perturb(batch, d))
+                     for d in range(CHECK_DRAWS)]
+        _wait_all(list(also), DP_TIMEOUT)
+        # the card free of other work: one process on rank 0's rows, then
+        # the ranks
+        state = create_state(copy.deepcopy(model), "cuda", torch.float32,
+                             name="SGD", lr=1.0, milestones=())
+        rows, step = place_global(batch, DP_WORLD, 0), make_train_step()
+        step(state, rows)  # the warm-up the ranks' checked step is
+        single_ms, _ = _profiled_steps(step, state, rows)
+        del state
+        open(os.path.join(tmp, "go"), "w").close()
+        _wait_all(procs, DP_TIMEOUT)
+    finally:
+        for p in procs + list(also):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks = [torch.load(os.path.join(tmp, f"step_r{r}.pt"),
+                        weights_only=False) for r in range(DP_WORLD)]
+    a, b = ranks[0]["out"], ranks[1]["out"]
+    same = [k for k in a if not torch.equal(a[k], b[k])]
+    if same:
+        raise AssertionError(f"data parallel: the ranks differ after the "
+                             f"step in {same}")
+    rows = compare_steps(a, ref, perturbed)
+    launches = {}
+    for r, res in enumerate(ranks):
+        want = {"stem_conv_stats": 2, "stem_dw": 2, "token_pool": 1,
+                "attention_fwd": ATTENTION_CALLS}
+        miss = {k: res["launches"][k] for k in want
+                if res["launches"][k] != want[k]}
+        if miss or not (res["launches"]["affine_act_pool"]
+                        and res["launches"]["affine_act_pool_bwd"]):
+            raise AssertionError(f"data parallel: rank {r} launched "
+                                 f"{res['launches']}, expected {want} and "
+                                 "K4 / K7")
+        for k, v in res["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"[data parallel, step] full-width ModelAd f32, global batch "
+          f"{DP_BATCH} x {VOLUME} on {DP_WORLD} ranks (Gloo, one card) "
+          f"against one process: loss {float(a['loss']):.6f} vs "
+          f"{float(ref['loss']):.6f}; all {len(rows)} tensors within the train-check rule, closest "
+          f"{[(n, round(t, 3)) for t, _, n in rows[:3]]}; the ranks' "
+          f"parameters and running statistics bit-identical; launches per "
+          f"rank {[r['launches'] for r in ranks]}", flush=True)
+    print(f"[data parallel, step] one process on {DP_BATCH // DP_WORLD} "
+          f"pairs (rank 0's rows): {single_ms:.2f} ms/step over "
+          f"{DP_PROFILED} steps under the profiler, the card to itself, on "
+          f"{card}", flush=True)
+    for r, res in enumerate(ranks):
+        print(f"[data parallel, step] rank {r}: {res['step_ms']:.2f} "
+              f"ms/step over {DP_PROFILED} steps under the profiler, after "
+              f"the CLI runs ended ({res['step_ms'] - single_ms:+.2f} ms "
+              f"against one process on the same pairs: the collectives "
+              f"and the other rank's kernels on the same card); collectives "
+              f"a step (count, host ms): "
+              f"{ {k: (round(c, 1), round(t, 3)) for k, (c, t) in res['collectives'].items()} } "
+              f"on {card}; Gloo over one shared card, not NCCL", flush=True)
+    return launches
+
+
+def _dp_cli_task(tmp, name, root, world, backend=None, env=None):
+    """Spawn the k-fold CLI of phase 17 on `world` ranks, in a process group
+    of `backend` that each child joins before the CLI (None: the CLI's
+    own, NCCL on the card); returns (the children, the checkpoints
+    directory)."""
+    ckpt = os.path.join(tmp, f"ck_{name}")
+    task = os.path.join(tmp, f"{name}.json")
+    with open(task, "w") as f:
+        json.dump({"kind": "cli", "name": name, "world": world,
+                   "port": _free_port(), "ckpt": ckpt, "backend": backend,
+                   "flags": _cli_flags(root, ckpt, name, folds="0"),
+                   "eval_flags": _cli_flags(root, ckpt, f"{name}_evaluate"),
+                   "dir": tmp}, f)
+    procs = [_spawn(["--dp-child", task, str(r)],
+                    os.path.join(tmp, f"{name}_r{r}.log"), env)
+             for r in range(world)]
+    return procs, ckpt
+
+
+def dp_check(card):
+    """Phase 17: data-parallel training (see the module's docstring).
+    Returns the children's launch counts."""
+    from transmf_ad_tpu_torch.data import make_synthetic_adni
+
+    laps = [("start", time.perf_counter())]
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "adni")
+        make_synthetic_adni(root, n_per_group=KFOLD_PER_CLASS, shape=VOLUME,
+                            groups=("CN", "AD"), seed=2,
+                            workers=os.cpu_count() or 1)
+        laps.append(("tree", time.perf_counter()))
+        # every child at once: 7 processes share the card until the CLI
+        # runs end; the step's timings come after that
+        runs = {"cached": _dp_cli_task(tmp, "cached", root, DP_WORLD, "gloo"),
+                "stream": _dp_cli_task(tmp, "stream", root, DP_WORLD, "gloo",
+                                       {"TRANSMF_CACHE_BUDGET_MB": "0"}),
+                "nccl": _dp_cli_task(tmp, "nccl", root, 1)}
+        launches["data parallel step"] = _dp_step_check(
+            card, tmp, [p for procs, _ in runs.values() for p in procs])
+        laps.append(("step and CLI runs", time.perf_counter()))
+        want_feed = {"cached": "DeviceCachedFeed", "stream": "DeviceFeed",
+                     "nccl": "DeviceCachedFeed"}
+        for name, (procs, ckpt) in runs.items():
+            ranks = [torch.load(os.path.join(tmp, f"{name}_r{r}.pt"),
+                                weights_only=False)
+                     for r in range(len(procs))]
+            res = ranks[0]["res"]
+            fold0 = res["folds"][0]
+            if res["feeds"] != [want_feed[name]] \
+                    or not np.isfinite(fold0[:2]).all():
+                raise AssertionError(f"data parallel {name}: feeds "
+                                     f"{res['feeds']}, fold 0 {fold0}")
+            for r, got in enumerate(ranks[1:], 1):
+                diff = [k for k in ranks[0]["state"]
+                        if not torch.equal(got["state"][k],
+                                           ranks[0]["state"][k])]
+                if diff or got["written"] or not np.array_equal(
+                        got["res"]["folds"], res["folds"], equal_nan=True):
+                    raise AssertionError(
+                        f"data parallel {name}: rank {r} differs in {diff}, "
+                        f"folds {got['res']['folds']} vs {res['folds']}, "
+                        f"wrote {got['written']}")
+            wrote = sorted(set(ranks[0]["written"]))
+            if not any(w.endswith("log.txt") for w in wrote) or not any(
+                    "best_label_net_model" in w for w in wrote):
+                raise AssertionError(f"data parallel {name}: rank 0 wrote "
+                                     f"{wrote}")
+            for r, got in enumerate(ranks):
+                launches[f"data parallel CLI {name} rank {r}"] = \
+                    got["launches"]
+                ev = got["evaluate"]
+                counts = all((x == y) or (np.isnan(x) and np.isnan(y))
+                             for x, y in zip(ev[1:5], fold0[1:5]))
+                close = all((abs(x - y) <= 1e-5)
+                            or (np.isnan(x) and np.isnan(y))
+                            for x, y in ((ev[0], fold0[0]),
+                                         (ev[5], fold0[5])))
+                if not (counts and close):
+                    raise AssertionError(
+                        f"data parallel {name}: cli/evaluate.py --fold 0 on "
+                        f"rank {r} gave {ev}, the fold logged {fold0}")
+            print(f"[data parallel, CLI {name}] {len(ranks)} rank(s) "
+                  f"({'NCCL' if name == 'nccl' else 'Gloo over one card'}), "
+                  f"bf16, fold 0 of 1 + 1 epochs, feed {res['feeds'][0]}: "
+                  f"test {[round(v, 4) for v in fold0]}, reproduced by "
+                  f"cli/evaluate.py --fold 0 on the same ranks (counts "
+                  f"equal, loss and AUC within 1e-5); the ranks' states "
+                  f"identical, rank 0 alone wrote {wrote}; epoch vols/s "
+                  f"{_epoch_rates(os.path.join(ckpt, name, '0', 'log.txt'))}"
+                  f"; launches per rank {[g['launches'] for g in ranks]}",
+                  flush=True)
+        laps.append(("checks", time.perf_counter()))
+    spent = ", ".join(f"{n} {t - tb:.1f}" for (_, tb), (n, t)
+                      in zip(laps, laps[1:]))
+    print(f"[data parallel] phase seconds {laps[-1][1] - laps[0][1]:.1f} "
+          f"({spent}) on {card}", flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", nargs="+", default=(), metavar="KERNEL",
                         help="phases 1-3 for these kernels alone; prints no "
                         "result lines")
-    only = parser.parse_args(argv).only
+    parser.add_argument("--dp-child", nargs=2, metavar=("TASK", "RANK"),
+                        help=argparse.SUPPRESS)  # a rank of phase 17
+    args = parser.parse_args(argv)
+    if args.dp_child:
+        return dp_child(args.dp_child[0], int(args.dp_child[1]))
+    only = args.only
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs a CUDA GPU", file=sys.stderr)
@@ -2655,7 +3245,7 @@ def main(argv=None) -> int:
     reset_launch_counts()  # phase 3 launched "column" on purpose
     lap("kernel checks")
     if only:
-        print(f"chip_smoke: --only {' '.join(only)}: phases 4-15 not run, "
+        print(f"chip_smoke: --only {' '.join(only)}: phases 4-17 not run, "
               "no result", flush=True)
         return 0
     side = {f"{name} at {keys} keys": round(times[name, label], 4)
@@ -2717,13 +3307,20 @@ def main(argv=None) -> int:
     lap("k-fold")
     zoo = zoo_check(card)
     lap("zoo")
+    remat = remat_check(card)
+    reset_counts()
+    lap("remat")
+    data_parallel = dp_check(card)
+    reset_counts()
+    lap("data parallel")
     runs = {"serving": serving, "train": trained,
             "serving, full resolution": full_serving,
             "train, full resolution": full_trained,
             tag: res_serving,
             "train, full resolution, transformer_res": res_trained,
             "learning check": learned, "k-fold CLI": kfold,
-            "k-fold CLI, CNN": kfold_cnn, **zoo}
+            "k-fold CLI, CNN": kfold_cnn, **zoo, "remat": remat,
+            **data_parallel}
     print(f"[launches] {runs}", flush=True)
     spent = ", ".join(f"{name} {t - t_before:.1f}" for (_, t_before), (name, t)
                       in zip(laps, laps[1:]))

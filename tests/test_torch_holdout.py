@@ -240,3 +240,57 @@ def test_clis_default_to_the_card(cli, adni_root, tmp_path):
              if f not in ("--device", "cpu")]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(flags)
+
+
+def _seed_spies(monkeypatch, mod, seen):
+    """Stub a kfold module's partition, volume source, loader and Trainer:
+    each records the seed it is given, in the order of the calls."""
+    real = mod.partition_dataset
+
+    def partition(data, ratios, *a, **kw):
+        seen.append(("partition", kw.get("seed")))
+        return real(data, ratios, *a, **kw)
+
+    def loader(*a, **kw):
+        if kw.get("shuffle"):  # the train loader: the seeded one
+            seen.append(("loader", kw["seed"]))
+
+    class FakeTrainer:
+        def __init__(self, cfg, logger=None):
+            seen.append(("trainer", cfg.seed))
+
+        def fit(self, *a, **kw):
+            return None
+
+        def param_count(self):
+            return 0
+
+    monkeypatch.setattr(mod, "partition_dataset", partition)
+    monkeypatch.setattr(mod, "VolumeSource", lambda data, **kw: data)
+    monkeypatch.setattr(mod, "Loader", loader)
+    monkeypatch.setattr(mod, "Trainer", FakeTrainer)
+
+
+@pytest.mark.parametrize("k", [0, 7, 2024])
+def test_holdout_randint_seeds_equal_jax(k, adni_root, tmp_path,
+                                         monkeypatch):
+    """With --randint True each package's `run_holdout` draws the task
+    seed three times, for the partition, the train loader and the Trainer,
+    in that order: after the same `random.seed(k)` the packages get the
+    same three seeds."""
+    import random
+
+    args = dict(dataroot=adni_root, checkpoints_dir=str(tmp_path / "ck"),
+                name="seeds", randint="True", task="ADCN", device="cpu")
+    ours, theirs = [], []
+    _seed_spies(monkeypatch, kfold, ours)
+    _seed_spies(monkeypatch, j_kfold, theirs)
+    os.makedirs(tmp_path / "ck" / "seeds")
+    random.seed(k)
+    kfold.run_holdout(config.Options(**args))
+    random.seed(k)
+    j_kfold.run_holdout(j_config.Options(
+        **{a: v for a, v in args.items() if a != "device"}))
+    assert [w for w, _ in ours] == ["partition", "loader", "trainer"]
+    assert ours == theirs
+    assert len({s for _, s in ours}) > 1  # three draws, not one

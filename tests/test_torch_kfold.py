@@ -27,8 +27,7 @@ from transmf_ad_tpu_torch.train import kfold
 from transmf_ad_tpu_torch.train.kfold import (kfold_split, train_val_split,
                                               transfer_dtype)
 
-NOT_PORTED = {"use_pallas", "coordinator_address", "num_processes",
-              "process_id"}
+NOT_PORTED = {"use_pallas"}
 
 
 @pytest.mark.parametrize("n", [10, 37, 40, 113])

@@ -453,15 +453,33 @@ def test_unported_flags_raise(field):
 
 
 @pytest.mark.parametrize("field", ["use_pallas", "data_parallel",
-                                   "model_parallel", "profile_dir",
-                                   "coordinator_address"])
+                                   "profile_dir"])
 def test_jax_only_fields_are_absent(field):
-    """The JAX package's mesh, multi-host, profiler and use_pallas fields
-    are not part of the port's config: setting one raises."""
+    """The JAX package's profiler, data_parallel and use_pallas fields are
+    not part of the port's config (a process group is always the data
+    axis): setting one raises."""
     assert field in {f.name for f in dataclasses.fields(
         j_trainer.TrainerConfig)}
     with pytest.raises(TypeError, match=field):
         TrainerConfig(**{field: None})
+
+
+@pytest.mark.parametrize("field", ["remat", "model_parallel",
+                                   "coordinator_address",
+                                   "num_processes", "process_id"])
+def test_parallel_fields_equal_jax(field):
+    """The remat, mesh and multi-process fields are the JAX package's,
+    with its defaults."""
+    ours = {f.name: f.default for f in dataclasses.fields(TrainerConfig)}
+    theirs = {f.name: f.default
+              for f in dataclasses.fields(j_trainer.TrainerConfig)}
+    assert ours[field] == theirs[field]
+
+
+def test_model_axis_raises():
+    with pytest.raises(NotImplementedError, match="model_parallel"):
+        TrainerConfig(model_parallel=2)
+    assert TrainerConfig(remat=True).remat
 
 
 def test_defaults_to_the_card():

@@ -33,7 +33,6 @@ from ..data.pipeline import Loader, VolumeSource
 from ..train.kfold import (_make_trainer_cfg, _variant_spec, kfold_split,
                            task_seed, transfer_dtype)
 from ..train.trainer import Trainer, _fmt_metrics
-from ..utils.logging import Logger
 
 
 def main(argv=None) -> dict:
@@ -66,7 +65,7 @@ def main(argv=None) -> dict:
 
     cfg = _make_trainer_cfg(opt, spec, f"{opt.checkpoints_dir}/{opt.name}",
                             seed)
-    trainer = Trainer(cfg, Logger(cfg.save_dir))
+    trainer = Trainer(cfg)  # rank 0 logs to cfg.save_dir
     m = trainer.evaluate_from_checkpoint(loader, paths[-1])
     print(_fmt_metrics(m))
     return m

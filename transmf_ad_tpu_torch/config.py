@@ -6,10 +6,12 @@ string-typed booleans ('True'/'False' comparisons), and the same `opt.txt`
 snapshot written under `<checkpoints_dir>/<name>/`.
 
 Differences from the JAX package's flags: `--use_pallas` is gone (the
-tensor's device picks between a kernel and its plain version), the
-multi-host flags (`--coordinator_address`, `--num_processes`,
-`--process_id`) wait for the multi-GPU port, and `--device` (default
-`cuda`) is the one way to ask for the CPU.
+tensor's device picks between a kernel and its plain version), and
+`--device` (default `cuda`) is the one way to ask for the CPU. The
+multi-process flags (`--coordinator_address`, `--num_processes`,
+`--process_id`) start data-parallel training, one process per card
+(`parallel/distributed.py`; `--coordinator_address auto` under torchrun),
+and only rank 0 writes `opt.txt`.
 """
 
 from __future__ import annotations
@@ -60,17 +62,33 @@ class Options:
     feed_dtype: str = "auto"
     use_class_weights: str = "False"  # weight CE by inverse class frequency
     pretrained: str = ""  # checkpoint to load before training (e.g. pretrainAD)
-    remat: str = "False"  # rematerialize encoders (not ported yet: raises)
+    remat: str = "False"  # rematerialize encoders (memory for recompute)
     debug_nans: str = "False"  # not ported: raises
     aug_exact: str = "False"  # exact-MONAI host augmentation (data/exact_monai.py)
     folds: str = ""  # comma-separated fold subset, e.g. "0,2" (default: all)
     # — redo a single fold; the KFold split itself stays identical (same
     # seed, all folds laid out), only which folds TRAIN is filtered
     device: str = "cuda"  # 'cuda' or 'cpu'
+    # data parallel, one process per card (parallel/distributed.py):
+    # coordinator 'auto' = torchrun's environment; num_processes 0 /
+    # process_id -1 = single-process (the default)
+    coordinator_address: str = ""
+    num_processes: int = 0
+    process_id: int = -1
 
     @property
     def aug_bool(self) -> bool:
         return str2bool(self.aug)
+
+    @property
+    def rank(self) -> int:
+        """This process's rank as the flags (or torchrun's RANK under
+        `--coordinator_address auto`) give it; 0 single-process."""
+        if self.process_id >= 0:
+            return self.process_id
+        if self.coordinator_address == "auto":
+            return int(os.environ.get("RANK", 0))
+        return 0
 
     @property
     def epochs(self) -> int:
@@ -107,6 +125,8 @@ class Option:
                 comment = f"\t[default: {default}]"
             message += f"{str(k):>25}: {str(v):<30}{comment}\n"
         print(message)
+        if opt.rank != 0:
+            return  # one writer on storage every rank sees
         expr_dir = os.path.join(opt.checkpoints_dir, opt.name)
         os.makedirs(expr_dir, exist_ok=True)
         with open(os.path.join(expr_dir, "opt.txt"), "wt") as f:

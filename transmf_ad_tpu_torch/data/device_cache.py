@@ -1,6 +1,6 @@
 """Device-resident dataset cache: no host-to-device volume bytes per epoch.
 
-Port of transmf_ad_tpu/data/device_cache.py for one device. The reference
+Port of transmf_ad_tpu/data/device_cache.py. The reference
 re-decodes every NIfTI from disk every epoch (reference:
 datasets/__init__.py:56-58, num_workers=0); the host pipeline caches the
 decoded volumes in RAM, but a streamed batch still crosses the
@@ -23,8 +23,19 @@ in the card's memory beside the model's state.
    rows resident as fit and streams the rest.
 
 Augmentation composes unchanged: it runs inside the train step on whatever
-batch arrives. The JAX package's mesh arguments (a cache sharded over a
-data-parallel mesh) wait for the multi-GPU port.
+batch arrives.
+
+Under a process group of W ranks (data parallel; the JAX package's cache
+sharded over the mesh's 'data' axis) the store is row-sharded: with the
+set padded to n_pad rows (a multiple of W), rank r holds rows
+[r n_pad / W, (r + 1) n_pad / W) and `cache_bytes` counts those alone, so
+the choice of feed is JAX's. Each step every rank knows the whole global
+batch (the loaders agree), so each sends the rows it owns to the ranks whose
+slice of the batch needs them, in one `all_to_all_single` a modality, and
+puts what it receives in place: copies only, never a sum of zero-padded
+contributions (-0.0 + 0.0 is +0.0), so the batch is bit for bit the host
+path's. Labels, 4 bytes a row, are on every rank. `HybridCachedFeed` stays
+single-process, as the JAX package's `Trainer.fit` gates it.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import padded_batch
 from .pipeline import device_prefetch
 
 __all__ = ["DeviceCachedFeed", "HybridCachedFeed", "fits_budget",
@@ -63,10 +75,12 @@ def _vol_shape(loader):
     return tuple(first[k].shape), itemsize, len(src.keys)
 
 
-def cache_bytes(loader) -> int:
-    """Device bytes the cache for `loader` would occupy."""
+def cache_bytes(loader, world: int = 1) -> int:
+    """Device bytes the cache for `loader` would occupy on each of `world`
+    ranks (n_pad / world rows each)."""
     shape, itemsize, n_keys = _vol_shape(loader)
-    return len(loader.indices) * int(np.prod(shape)) * itemsize * n_keys
+    rows = padded_batch(len(loader.indices), world) // world
+    return rows * int(np.prod(shape)) * itemsize * n_keys
 
 
 def hbm_budget(device="cuda") -> int:
@@ -119,16 +133,32 @@ class DeviceCachedFeed:
     Drop-in for `pipeline.DeviceFeed` in `Trainer.fit` / `evaluate`:
     `len` / `peek` / `batch_size` delegate to the wrapped loader, and
     `device_resident=True` tells the trainer the batches need no further
-    padding or placement.
+    padding or placement. With `group` (a torch.distributed process group)
+    the store is row-sharded over the ranks and each batch is this rank's
+    rows of the global one (see the module's docstring); `pad_to` must
+    then divide over the world size (default: the batch size rounded up).
     """
 
     device_resident = True
 
-    def __init__(self, loader, device="cuda", pad_to: Optional[int] = None):
+    def __init__(self, loader, device="cuda", pad_to: Optional[int] = None,
+                 group=None):
         _check_no_transform(loader, "DeviceCachedFeed")
         self.loader = loader
         self.device = torch.device(device)
-        self.pad_to = pad_to if pad_to is not None else loader.batch_size
+        self.group = group
+        self.world, self.rank = 1, 0
+        if group is not None:
+            import torch.distributed as dist
+
+            self.world = dist.get_world_size(group)
+            self.rank = dist.get_rank(group)
+        base = loader.batch_size
+        self.pad_to = (pad_to if pad_to is not None
+                       else padded_batch(base, self.world))
+        if self.pad_to % self.world:
+            raise ValueError(f"pad_to={self.pad_to} does not divide over "
+                             f"{self.world} ranks")
         self._store = None
         self._labels = None
         self._pos: Dict[int, int] = {}
@@ -151,13 +181,45 @@ class DeviceCachedFeed:
         src = self.loader.source
         idxs = [int(i) for i in self.loader.indices]
         self._pos = {s: j for j, s in enumerate(idxs)}
+        # rows a rank holds
+        self._per = padded_batch(len(idxs), self.world) // self.world
+        mine = idxs[self.rank * self._per:(self.rank + 1) * self._per]
         shape, _, _ = _vol_shape(self.loader)
         dtype = _torch_dtype(src.dtype)
-        self._store = {k: _stack_rows(src, idxs, k, shape, dtype,
+        self._store = {k: _stack_rows(src, mine, k, shape, dtype,
                                       self.device) for k in src.keys}
         labels = np.asarray([int(src.records[s]["label"]) for s in idxs],
                             np.int32)
         self._labels = torch.from_numpy(labels).to(self.device)
+
+    def _exchange(self, rows: np.ndarray) -> Dict[str, torch.Tensor]:
+        """This rank's slice of the global batch whose cache rows are `rows`
+        (pad_to,), from the ranks that hold them: rank q sends rank d the
+        rows of d's slice that q owns, in slice order; d puts each where it
+        belongs."""
+        import torch.distributed as dist
+
+        w, per = self.world, self._per
+        b_loc = self.pad_to // w
+        owner = rows // per
+        mine = slice(self.rank * b_loc, (self.rank + 1) * b_loc)
+        send = [np.flatnonzero(owner[d * b_loc:(d + 1) * b_loc] == self.rank)
+                + d * b_loc for d in range(w)]
+        recv = [np.flatnonzero(owner[mine] == q) for q in range(w)]
+        send_rows = np.concatenate(send) if send else np.empty(0, np.int64)
+        local = torch.from_numpy(rows[send_rows] - self.rank * per).to(
+            self.device)
+        place = torch.from_numpy(np.concatenate(recv)).to(self.device)
+        out = {}
+        for k, store in self._store.items():
+            src = store.index_select(0, local)
+            got = torch.empty((b_loc, *store.shape[1:]), dtype=store.dtype,
+                              device=self.device)
+            dist.all_to_all_single(
+                got, src, output_split_sizes=[len(r) for r in recv],
+                input_split_sizes=[len(r) for r in send], group=self.group)
+            out[k] = torch.empty_like(got).index_copy_(0, place, got)
+        return out
 
     # ----- iteration -----
 
@@ -165,6 +227,8 @@ class DeviceCachedFeed:
         if self._store is None:
             self._fill()
         pos = self._pos
+        b_loc = self.pad_to // self.world
+        mine = slice(self.rank * b_loc, (self.rank + 1) * b_loc)
         for idx in self.loader._batches():
             rows = np.empty(self.pad_to, np.int64)
             b = len(idx)
@@ -172,11 +236,16 @@ class DeviceCachedFeed:
                 rows[j] = pos[int(s)]
             if b < self.pad_to:  # wrap-around duplicates (pipeline.pad_batch)
                 rows[b:] = rows[np.arange(self.pad_to - b) % b]
-            rows = torch.from_numpy(rows).to(self.device)
-            out = {k: v.index_select(0, rows) for k, v in self._store.items()}
-            out["label"] = self._labels.index_select(0, rows)
+            if self.group is None:
+                dev = torch.from_numpy(rows).to(self.device)
+                out = {k: v.index_select(0, dev)
+                       for k, v in self._store.items()}
+            else:
+                out = self._exchange(rows)
+            out["label"] = self._labels.index_select(
+                0, torch.from_numpy(rows[mine]).to(self.device))
             out["mask"] = (torch.arange(self.pad_to, device=self.device)
-                           < b).float()
+                           < b).float()[mine]
             out["_n_real"] = b  # host metadata (trainer BN-mask dispatch)
             yield out
 

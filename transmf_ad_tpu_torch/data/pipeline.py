@@ -12,7 +12,9 @@ Port of transmf_ad_tpu/data/pipeline.py, with the same behaviour:
  - batches move to the device `depth` steps ahead of their use
    (`device_prefetch`, `DeviceFeed`): on a CUDA device through pinned host
    memory and asynchronous copies on a side stream, so a copy overlaps the
-   step before it.
+   step before it; under a process group (data parallel) every rank's
+   Loader yields the same global batch, by the same seed, and `DeviceFeed`
+   pads it to a multiple of the world size and moves only this rank's rows.
 
 The bfloat16 cache holds `torch.bfloat16` CPU tensors, not numpy arrays:
 numpy has no bfloat16 without ml_dtypes, which the port does not rely on.
@@ -32,6 +34,8 @@ import numpy as np
 import torch
 
 from . import nifti
+from ..parallel.distributed import place_global
+from ..parallel.mesh import padded_batch
 from .transforms import spatial_pad
 
 VOLUME_KEYS = ("MRI", "PET")
@@ -353,13 +357,28 @@ class DeviceFeed:
     transferred `depth` steps ahead of their use (`device_prefetch`), each
     padded to `pad_to` samples by `pad_batch` with its real count as
     '_n_real' when `pad_to` is given. Used by `Trainer.fit` as the
-    streaming feed; delegates `len`/`peek` to the wrapped loader."""
+    streaming feed; delegates `len`/`peek` to the wrapped loader.
+
+    group: a torch.distributed process group: the loader's batch is the
+    global one, padded to `pad_to` (by default the batch size rounded up to
+    a multiple of the world size), and only this rank's rows
+    (`parallel.place_global`) are pinned and copied; '_n_real' stays the
+    global count."""
 
     def __init__(self, loader, device="cuda", depth: int = 2,
-                 pad_to: Optional[int] = None):
+                 pad_to: Optional[int] = None, group=None):
         self.loader = loader
         self.device = torch.device(device)
         self.depth = depth
+        self.group = group
+        self.world, self.rank = 1, 0
+        if group is not None:
+            import torch.distributed as dist
+
+            self.world = dist.get_world_size(group)
+            self.rank = dist.get_rank(group)
+            if pad_to is None:
+                pad_to = padded_batch(loader.batch_size, self.world)
         self.pad_to = pad_to  # fixed batch size (see pad_batch)
 
     def __len__(self):
@@ -374,7 +393,8 @@ class DeviceFeed:
             def padded(it):
                 for b in it:
                     n = int(b["label"].shape[0])
-                    pb = pad_batch(b, self.pad_to)
+                    pb = place_global(pad_batch(b, self.pad_to), self.world,
+                                      self.rank)
                     pb["_n_real"] = n  # host metadata (see device_prefetch)
                     yield pb
             it = padded(it)

@@ -23,7 +23,9 @@ without BatchNorm, `fc.{0,2}` / `fc_cls.{0,2}` for the MLP heads, and
 Volumes are channels-last (B, X, Y, Z, 1); the whole forward computes in
 the volumes' dtype with float32 parameters. `train=True` takes BatchNorm
 batch statistics (weighted by `bn_mask` when given), moves the running
-statistics, and applies dropout drawn from `generator`.
+statistics, and applies dropout drawn from `generator`. `remat=True`
+recomputes the costly encoder blocks in the backward (`nn/blocks.py::SNet`),
+as the JAX models' `remat` field does.
 """
 
 from __future__ import annotations
@@ -93,11 +95,12 @@ class ModelAd(nn.Module):
     def __init__(self, dim: int = 128, depth: int = 3, heads: int = 4,
                  dim_head: int = 32, mlp_dim: int = 512, dropout: float = 0.0,
                  grl_alpha: float = 2.0, head_dropout: float = 0.5,
-                 band_min_voxels: int = BAND_MIN_VOXELS):
+                 band_min_voxels: int = BAND_MIN_VOXELS,
+                 remat: bool = False):
         super().__init__()
         self.grl_alpha = grl_alpha
-        self.mri_cnn = SNet(dim, band_min_voxels)
-        self.pet_cnn = SNet(dim, band_min_voxels)
+        self.mri_cnn = SNet(dim, band_min_voxels, remat)
+        self.pet_cnn = SNet(dim, band_min_voxels, remat)
         self.D = _Discriminator(dim)
         self.fuse_transformer = CrossTransformerModAvg(
             dim, depth, heads, dim_head, mlp_dim, dropout)
@@ -128,10 +131,11 @@ class ModelTransformer(nn.Module):
     def __init__(self, dim: int = 128, depth: int = 3, heads: int = 4,
                  dim_head: int = 32, mlp_dim: int = 512, dropout: float = 0.0,
                  head_dropout: float = 0.5,
-                 band_min_voxels: int = BAND_MIN_VOXELS):
+                 band_min_voxels: int = BAND_MIN_VOXELS,
+                 remat: bool = False):
         super().__init__()
-        self.mri_cnn = SNet(dim, band_min_voxels)
-        self.pet_cnn = SNet(dim, band_min_voxels)
+        self.mri_cnn = SNet(dim, band_min_voxels, remat)
+        self.pet_cnn = SNet(dim, band_min_voxels, remat)
         self.fuse_transformer = CrossTransformerModAvg(
             dim, depth, heads, dim_head, mlp_dim, dropout)
         self.fc_cls = _FusionHead(4 * dim, head_dropout)
@@ -154,10 +158,11 @@ class ModelTransformerRes(nn.Module):
     def __init__(self, dim: int = 128, depth: int = 3, heads: int = 4,
                  dim_head: int = 32, mlp_dim: int = 512, dropout: float = 0.0,
                  head_dropout: float = 0.5,
-                 band_min_voxels: int = BAND_MIN_VOXELS):
+                 band_min_voxels: int = BAND_MIN_VOXELS,
+                 remat: bool = False):
         super().__init__()
-        self.mri_cnn = SNet(dim, band_min_voxels)
-        self.pet_cnn = SNet(dim, band_min_voxels)
+        self.mri_cnn = SNet(dim, band_min_voxels, remat)
+        self.pet_cnn = SNet(dim, band_min_voxels, remat)
         self.fuse_transformer = CrossTransformer(dim, depth, heads, dim_head,
                                                  mlp_dim, dropout)
         self.fc_cls = _FusionHead(2 * dim, head_dropout, use_batchnorm=False)
@@ -180,10 +185,11 @@ class ModelCNN(nn.Module):
     -> logits."""
 
     def __init__(self, dim: int = 128,
-                 band_min_voxels: int = BAND_MIN_VOXELS):
+                 band_min_voxels: int = BAND_MIN_VOXELS,
+                 remat: bool = False):
         super().__init__()
-        self.mri_cnn = SNet(dim, band_min_voxels)
-        self.pet_cnn = SNet(dim, band_min_voxels)
+        self.mri_cnn = SNet(dim, band_min_voxels, remat)
+        self.pet_cnn = SNet(dim, band_min_voxels, remat)
         self.fc = _MLPHead(2 * dim, 128)
 
     def forward(self, mri, pet, train: bool = False, bn_mask=None,
@@ -201,9 +207,10 @@ class ModelSingle(nn.Module):
     averaged over space, MLP dim -> 64 -> 2 -> logits."""
 
     def __init__(self, dim: int = 128,
-                 band_min_voxels: int = BAND_MIN_VOXELS):
+                 band_min_voxels: int = BAND_MIN_VOXELS,
+                 remat: bool = False):
         super().__init__()
-        self.cnn = SNet(dim, band_min_voxels)
+        self.cnn = SNet(dim, band_min_voxels, remat)
         self.fc = _MLPHead(dim, 64)
 
     def forward(self, img, train: bool = False, bn_mask=None,
@@ -219,11 +226,12 @@ class ModelCNNAd(nn.Module):
     -> (logits, d_mri, d_pet)."""
 
     def __init__(self, dim: int = 128, grl_alpha: float = 2.0,
-                 band_min_voxels: int = BAND_MIN_VOXELS):
+                 band_min_voxels: int = BAND_MIN_VOXELS,
+                 remat: bool = False):
         super().__init__()
         self.grl_alpha = grl_alpha
-        self.mri_cnn = SNet(dim, band_min_voxels)
-        self.pet_cnn = SNet(dim, band_min_voxels)
+        self.mri_cnn = SNet(dim, band_min_voxels, remat)
+        self.pet_cnn = SNet(dim, band_min_voxels, remat)
         self.D = _Discriminator(dim)
         self.fc_cls = _MLPHead(2 * dim, 128)
 

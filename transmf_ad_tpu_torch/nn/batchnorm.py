@@ -14,16 +14,79 @@ float32. The batch moments come from producer sums (`stats`, e.g. the stem
 kernel's), from a 0/1 per-sample `mask` (so a duplicate-padded batch gives the
 statistics of its real samples), or from the tensor itself. The mode is the
 `train` argument, as in the JAX package; nn.Module.training is not read.
+
+Synced BatchNorm (the JAX package's `axis_name`): inside `synced(group)`
+the batch moments (sum, sum of squares and, under a mask, the count) are
+all-reduced over the ranks of a torch.distributed process group, so every
+rank normalises with the statistics of the global batch; without a mask
+the count is the local one times the world size. The all-reduce is
+differentiable with psum's transpose: its backward all-reduces the
+cotangent. A block that `nn/blocks.py` checkpoints recomputes its forward
+in the backward inside `recomputing(group)`: the same group, and no second
+update of the running statistics (the forward made it; the JAX package's
+`nn.remat` likewise drops the recompute's `batch_stats`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from ..parallel.distributed import psum
+
 _MOMENTUM = 0.9  # flax convention: new = m * old + (1 - m) * batch
+
+# the process group the batch moments are all-reduced over (None: this
+# process's batch alone), and whether a checkpointed block is being
+# recomputed. Module state, not thread-local: a CUDA backward, and with it
+# the recompute, runs on autograd's device thread while the caller waits.
+_SYNC = {"group": None, "recompute": False}
+
+
+@contextlib.contextmanager
+def _set(**kw):
+    prev = dict(_SYNC)
+    _SYNC.update(kw)
+    try:
+        yield
+    finally:
+        _SYNC.update(prev)
+
+
+def synced(group):
+    """Context: BatchNorm batch moments over every rank of `group`."""
+    return _set(group=group)
+
+
+def recomputing(group):
+    """Context of a checkpointed block's recompute: the group its forward
+    ran under, and the running statistics left as they are."""
+    return _set(group=group, recompute=True)
+
+
+def sync_group():
+    """The process group of the enclosing `synced`, or None."""
+    return _SYNC["group"]
+
+
+def _global(s, ss, n):
+    """(s, ss, n) summed over the ranks of the synced group: one
+    differentiable all-reduce of s, ss and, when it is a tensor (a masked
+    count), n; an int count is the same on every rank."""
+    group = _SYNC["group"]
+    if group is None:
+        return s, ss, n
+    counted = isinstance(n, torch.Tensor)
+    parts = [s, ss] + ([n.reshape(1).float()] if counted else [])
+    total = psum(torch.cat(parts), group)
+    c = s.shape[0]
+    s, ss = total[:c], total[c:2 * c]
+    n = total[2 * c] if counted else n * dist.get_world_size(group)
+    return s, ss, n
 
 
 class _RunningStats(nn.Module):
@@ -37,7 +100,10 @@ class _RunningStats(nn.Module):
 
     def _update(self, mean, var, n):
         """Running averages from the batch mean and BIASED variance over n
-        samples (running_var takes the unbiased one)."""
+        samples (running_var takes the unbiased one). Skipped while a
+        checkpointed block recomputes its forward."""
+        if _SYNC["recompute"]:
+            return
         with torch.no_grad():
             var_u = var * (n / max(n - 1, 1) if isinstance(n, (int, float))
                            else n / torch.clamp(n - 1, min=1))
@@ -85,7 +151,8 @@ class ManualBN(_RunningStats):
             raise ValueError("ManualBN: `stats` and `mask` are mutually "
                              "exclusive: producer-kernel sums cover the whole "
                              "padded batch and cannot be mask-corrected")
-        s, ss, n = stats if stats is not None else _moments(y, mask)
+        s, ss, n = _global(*(stats if stats is not None
+                             else _moments(y, mask)))
         mean0 = s / n  # mean of the bias-free output
         var = ss / n - mean0 * mean0
         mean = mean0 + b
@@ -100,7 +167,7 @@ class BatchNormMasked(_RunningStats):
 
     def forward(self, x, train: bool = False, mask=None):
         if train:
-            s, ss, n = _moments(x, mask)
+            s, ss, n = _global(*_moments(x, mask))
             mean = s / n
             var = ss / n - mean * mean
             self._update(mean, var, n)

@@ -24,6 +24,13 @@ backward K8 and K9), and its stage-end max pool then takes the lane-vector
 entry, as in the JAX package. Below the threshold the body convs stay
 `F.conv3d` with its own autograd, where the JAX package leaves them to XLA.
 
+`SNet(remat=True)` recomputes, in the backward, the forward of each block
+whose intermediates are worth it (`_remat_worth_it`, the JAX package's
+rule), through `torch.utils.checkpoint`: their conv output and activation
+are not stored, only the block's input. The recompute reruns the block's
+kernels (K5 or K8 with its sums, the BatchNorm statistics, K4); the
+running statistics move once (`batchnorm.recomputing`).
+
 Parameters carry the reference sNet's torch names (`conv1.0.weight`,
 `conv1.1.running_mean`, ... `conv4.4.bias`), which
 `transmf_ad_tpu.utils.torch_import.map_state_dict` reads.
@@ -31,15 +38,22 @@ Parameters carry the reference sNet's torch names (`conv1.0.weight`,
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import math
+import os
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.band_conv import band_conv3d, band_conv3d_stats
 from ..ops.pool3d import (avg_pool3d_2x2_affine_act,
                           max_pool3d_2x2_affine_act,
                           max_pool3d_2x2_affine_act_bc)
 from ..ops.stem import stem_conv, stem_conv_stats
+from . import batchnorm
 from .batchnorm import ManualBN, bn_affine_reference
 
 # the negative slope of each activation (JAX's ConvBNAct `act`)
@@ -127,14 +141,41 @@ _PLAN = (
 )
 
 
+def _remat_worth_it(shape, features, itemsize=2):
+    """Whether recomputing a ConvBNAct block in the backward pays at this
+    input shape (the JAX package's rule, nn/blocks.py:285-302): the block's
+    intermediates, the conv output and the activation at the input's
+    spatial size, 2 * prod(shape[:-1]) * features elements of `itemsize`
+    bytes (2 whatever the compute dtype, as in the JAX package), must reach
+    TRANSMF_REMAT_MIN_MB MiB (default 300): the block's input is stored
+    either way, so small intermediates buy nothing. `shape` is the block's
+    input on this rank, as JAX's rule sees one shard's. At batch 8,
+    91x109x91 only the stem block qualifies; at batch 6, 182x218x182 blocks
+    0, 1, 2 and 4 (5.5 GB, 693 MB, 1.39 GB, 336 MB; block 3 has 168)."""
+    min_mb = float(os.environ.get("TRANSMF_REMAT_MIN_MB", "300"))
+    inter = 2 * math.prod(shape[:-1]) * features * itemsize
+    return inter >= min_mb * 2**20
+
+
+def _remat_contexts(group):
+    """`checkpoint`'s context_fn: nothing around the forward; around the
+    recompute, the forward's process group and no running-statistics
+    update (`batchnorm.recomputing`)."""
+    return contextlib.nullcontext(), batchnorm.recomputing(group)
+
+
 class SNet(nn.Module):
     """Per-modality 3D-CNN encoder: (B, X, Y, Z, 1) -> (B, X/16, Y/16, Z/16,
-    dim); 91x109x91 gives the 5x6x5 = 150-token grid."""
+    dim); 91x109x91 gives the 5x6x5 = 150-token grid. remat: in training
+    with autograd on, the blocks `_remat_worth_it` picks recompute their
+    forward in the backward (the parameter names do not change)."""
 
     def __init__(self, dim: int = 128,
-                 band_min_voxels: int = BAND_MIN_VOXELS):
+                 band_min_voxels: int = BAND_MIN_VOXELS,
+                 remat: bool = False):
         super().__init__()
         self.band_min_voxels = band_min_voxels
+        self.remat = remat
         q = dim // 4
         stages = {}
         for stage, cs, bs, (ci, co), k, _ in _PLAN:
@@ -145,12 +186,36 @@ class SNet(nn.Module):
         for name, slots in stages.items():
             self.add_module(name, slots)
 
+    def remat_blocks(self, shape):
+        """Indices of the blocks that `remat` recomputes for an input of
+        `shape` (B, X, Y, Z, 1), from the rule alone (no forward)."""
+        q = self.conv1["0"].out_channels
+        spatial, picked = list(shape[:-1]), []
+        for i, (_, _, _, (ci, co), _, pool) in enumerate(_PLAN):
+            cin = ci * q if ci else 1
+            if _remat_worth_it((*spatial, cin), co * q):
+                picked.append(i)
+            if pool:
+                spatial[1:] = [d // 2 for d in spatial[1:]]
+        return picked
+
     def forward(self, x, train: bool = False, bn_mask=None):
+        wrap = self.remat and train and torch.is_grad_enabled()
         for stage, cs, bs, _, _, pool in _PLAN:
             slots = getattr(self, stage)
-            x = conv_bn_act(x, slots[cs], slots[bs], pool, train=train,
-                            bn_mask=bn_mask,
-                            band_min_voxels=self.band_min_voxels)
+            block = functools.partial(
+                conv_bn_act, conv=slots[cs], bn=slots[bs], pool=pool,
+                train=train, bn_mask=bn_mask,
+                band_min_voxels=self.band_min_voxels)
+            if wrap and _remat_worth_it(x.shape, slots[cs].out_channels):
+                # the update of the running statistics stays in the
+                # forward: the recompute skips it (`_remat_contexts`)
+                x = checkpoint(block, x, use_reentrant=False,
+                               preserve_rng_state=False,
+                               context_fn=functools.partial(
+                                   _remat_contexts, batchnorm.sync_group()))
+            else:
+                x = block(x)
         return x
 
 

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.distributed import psum
+
 
 def cross_entropy(logits, labels, weights=None, reduce: bool = True):
     """Softmax cross-entropy over integer labels, in float32.
@@ -28,19 +30,24 @@ def cross_entropy(logits, labels, weights=None, reduce: bool = True):
     return (w * nll).sum() / w.sum()
 
 
-def adversarial_loss(d_mri_logits, d_pet_logits, mask=None):
+def adversarial_loss(d_mri_logits, d_pet_logits, mask=None, group=None):
     """Discriminator loss: MRI labeled 1, PET labeled 0, the two mean
     cross-entropies averaged (reference: kfold_train_adversarial.py:
     120-125). mask: optional (B,) 0/1 weights of real samples, whose
-    weighted means then replace the means."""
+    weighted means then replace the means. group: a process group whose
+    ranks each hold rows of one global batch: the sums and the count are
+    all-reduced over it (differentiably), so the loss is the global
+    batch's on every rank."""
     ones = torch.ones(d_mri_logits.shape[0], dtype=torch.long,
                       device=d_mri_logits.device)
     mri = cross_entropy(d_mri_logits, ones, reduce=False)
     pet = cross_entropy(d_pet_logits, torch.zeros_like(ones), reduce=False)
     if mask is None:
-        return (mri.mean() + pet.mean()) / 2.0
-    n = mask.sum()
-    return ((mri * mask).sum() / n + (pet * mask).sum() / n) / 2.0
+        mask = torch.ones_like(mri)
+    mri_n, pet_n, n = psum(torch.stack([(mri * mask).sum(),
+                                        (pet * mask).sum(), mask.sum()]),
+                           group)
+    return (mri_n / n + pet_n / n) / 2.0
 
 
 def supcon_loss(features, labels=None, mask=None, temperature: float = 0.07,

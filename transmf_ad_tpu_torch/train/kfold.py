@@ -23,6 +23,13 @@ Driver variants (one per reference entry point):
 
 `run_holdout` is the hold-out driver (reference: train_adversarial.py).
 
+`run_kfold` and `run_holdout` join the process group first
+(`--coordinator_address`, `--num_processes`, `--process_id`;
+`_init_multihost`), before any file or CUDA side effect; then every rank
+runs the same folds on its rows of each batch, and only rank 0 logs and
+writes. Each rank draws its own `--randint True` seed, as each process of
+the JAX package does.
+
 The splits are sklearn's `KFold(n_splits, shuffle=True, random_state=seed)`
 and `train_test_split(test_size=0.2, random_state=seed)`, written in numpy
 with the same draws (`np.random.RandomState(seed)`), so that the port needs
@@ -44,6 +51,7 @@ import torch
 from ..config import Options, str2bool
 from ..data.adni import ADNI
 from ..data.pipeline import Loader, VolumeSource
+from ..parallel import NullLogger, init_distributed, is_primary
 from ..utils.logging import Logger
 from .trainer import Trainer, TrainerConfig, resolve_dtype
 
@@ -171,7 +179,25 @@ def _make_trainer_cfg(opt: Options, spec: Dict, fold_dir: str,
         remat=opt.remat == "True",
         debug_nans=opt.debug_nans == "True",
         device=opt.device,
+        **_dist_fields(opt),
     )
+
+
+def _dist_fields(opt: Options) -> Dict:
+    """The TrainerConfig fields of the multi-process flags."""
+    return dict(coordinator_address=opt.coordinator_address or None,
+                num_processes=opt.num_processes or None,
+                process_id=opt.process_id if opt.process_id >= 0 else None)
+
+
+def _init_multihost(opt: Options) -> bool:
+    """Join the process group (a no-op single-process) before any logger,
+    file or other CUDA side effect, and report whether this process owns
+    them (rank 0)."""
+    init_distributed(**dict(zip(
+        ("coordinator_address", "num_processes", "process_id"),
+        _dist_fields(opt).values())), device=opt.device)
+    return is_primary()
 
 
 def run_kfold(opt: Options, variant: str = "adversarial",
@@ -182,7 +208,8 @@ def run_kfold(opt: Options, variant: str = "adversarial",
     sen, spe, f1, auc], the seed, and the type name of each fold's train
     feed."""
     save_dir = os.path.join(opt.checkpoints_dir, opt.name)
-    logger_main = Logger(save_dir)
+    primary = _init_multihost(opt)
+    logger_main = Logger(save_dir) if primary else NullLogger()
     spec = _variant_spec(variant, opt)
     if pad_to_override is not None:
         spec["pad_to"] = pad_to_override
@@ -223,7 +250,7 @@ def run_kfold(opt: Options, variant: str = "adversarial",
 
         fold_dir = os.path.join(save_dir, str(fold))
         cfg = _make_trainer_cfg(opt, spec, fold_dir, seed)
-        trainer = Trainer(cfg, Logger(fold_dir))
+        trainer = Trainer(cfg, Logger(fold_dir) if primary else None)
         res_fold = trainer.fit(train_loader, val_loader, test_loader,
                                class_weights=class_weights)
         feeds.append(type(trainer.train_feed).__name__)
@@ -292,13 +319,15 @@ def run_holdout(opt: Options) -> Optional[List[float]]:
     record dicts, allow_pickle) under the run's directory. Returns the
     test [loss, acc, sen, spe, f1, auc]."""
     save_dir = os.path.join(opt.checkpoints_dir, opt.name)
-    logger = Logger(save_dir)
-    seed = task_seed(opt)
+    primary = _init_multihost(opt)
+    logger = Logger(save_dir) if primary else NullLogger()
+    # `task_seed` is drawn where JAX's `run_holdout` draws it: for the
+    # partition, the loader and the Trainer (three draws with --randint)
     if opt.dataset == "ADNI12":
         adni1 = ADNI(opt.dataroot, "ADNI1_modality_complete.csv", opt.task)
         adni2 = ADNI(opt.dataroot, "ADNI2_modality_complete.csv", opt.task)
         train_d, val_d = partition_dataset(adni1.data_dict, [0.8, 0.2],
-                                           seed=seed)
+                                           seed=task_seed(opt))
         test_d = adni2.data_dict
     elif opt.task == "pretrain":
         data = ADNI(opt.dataroot, "ADNI.csv", "ADCN").data_dict
@@ -307,16 +336,18 @@ def run_holdout(opt: Options) -> Optional[List[float]]:
     else:
         data = ADNI(opt.dataroot, "ADNI.csv", opt.task).data_dict
         train_d, val_d, test_d = partition_dataset(data, [0.6, 0.2, 0.2],
-                                                   seed=seed)
-    for name, part in (("train", train_d), ("val", val_d), ("test", test_d)):
-        np.save(os.path.join(save_dir, f"{name}.npy"), part,
-                allow_pickle=True)
+                                                   seed=task_seed(opt))
+    if primary:  # partition snapshots: one writer
+        for name, part in (("train", train_d), ("val", val_d),
+                           ("test", test_d)):
+            np.save(os.path.join(save_dir, f"{name}.npy"), part,
+                    allow_pickle=True)
 
     source = VolumeSource(train_d + val_d + test_d,
                           dtype=transfer_dtype(opt))
     n1, n2 = len(train_d), len(train_d) + len(val_d)
     train_loader = Loader(source, list(range(n1)), opt.batch_size,
-                          shuffle=True, drop_last=True, seed=seed,
+                          shuffle=True, drop_last=True, seed=task_seed(opt),
                           prefetch=opt.prefetch)
     val_loader = Loader(source, list(range(n1, n2)), opt.batch_size)
     test_loader = (Loader(source, list(range(n2, len(source))),
@@ -327,8 +358,8 @@ def run_holdout(opt: Options) -> Optional[List[float]]:
         dim=opt.dim, depth=opt.trans_enc_depth, heads=8,
         dropout=opt.dropout, optimizer=opt.optimizer, lr=opt.lr,
         weight_decay=opt.weight_decay, epochs=opt.epochs,
-        aug=opt.aug_bool, aug_exact=str2bool(opt.aug_exact), seed=seed,
-        save_dir=save_dir, dtype=opt.dtype or "auto",
+        aug=opt.aug_bool, aug_exact=str2bool(opt.aug_exact),
+        seed=task_seed(opt), save_dir=save_dir, dtype=opt.dtype or "auto",
         resume=opt.resume == "True", device=opt.device)
     weights = dataset_weights(train_d)
     class_weights = weights if opt.use_class_weights == "True" else None

@@ -66,6 +66,12 @@ class MetricState:
             confusion=self.confusion + conf,
         )
 
+    def add(self, other: "MetricState") -> "MetricState":
+        """Field-by-field sum with another state (a batch's delta)."""
+        return MetricState(**{
+            f.name: getattr(self, f.name) + getattr(other, f.name)
+            for f in dataclasses.fields(self)})
+
 
 def confusion_metrics(c) -> Dict[str, float]:
     """sen/spe/f1/precision/recall from a 2x2 [true, pred] confusion matrix

@@ -1,14 +1,23 @@
 """The train step and its state.
 
-Port of transmf_ad_tpu/train/steps.py::make_train_step for one device. The
-JAX step is one jitted program; here the same work runs eagerly on the
-model's device: dequantize and augment the batch, forward with BatchNorm
-statistic updates and dropout, the triple loss (CE + the mean of the two
-discriminator CEs, with masked sums), backward, the optimizer step and the
-scheduler step. `make_eval_step` is the port of its eval step: the
-deterministic forward, the per-sample cross-entropy and the masked metric
-accumulation. The multi-device (`mesh`) forms and buffer donation are still
-to port (ROADMAP.md Queue 1 item 9).
+Port of transmf_ad_tpu/train/steps.py::make_train_step. The JAX step is
+one jitted program; here the same work runs eagerly on the model's device:
+dequantize and augment the batch, forward with BatchNorm statistic updates
+and dropout, the triple loss (CE + the mean of the two discriminator CEs,
+from masked sums), backward, the optimizer step and the scheduler step.
+`make_eval_step` is the port of its eval step: the deterministic forward,
+the per-sample cross-entropy and the masked metric accumulation.
+
+Data parallel (the JAX package's `mesh=`, its step under `shard_map` over
+the 'data' axis): with `group`, a torch.distributed process group, each
+rank runs the step on its rows of the global batch. BatchNorm moments are
+all-reduced over the group (`nn/batchnorm.py::synced`), and so are the
+loss's sums (CE numerator and denominator, the two discriminator sums and
+their count), with a differentiable all-reduce whose backward all-reduces
+the cotangent (psum's transpose): each rank then holds the gradient of the
+sum of the W replicated global losses, and one all-reduce of the flat
+gradients divided by W (pmean) leaves the gradient of the global loss on
+every rank, the same bits on each. Buffer donation has no counterpart.
 """
 
 from __future__ import annotations
@@ -17,10 +26,13 @@ import dataclasses
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..data.transforms import AugmentConfig, augment, draw_params
+from ..nn import batchnorm
 from ..nn.losses import adversarial_loss, cross_entropy
+from ..parallel.distributed import collective_flat, psum
 from ..serving import resolve_dtype
 from .metrics import MetricState
 from .optim import build_optimizer
@@ -92,10 +104,22 @@ def _ce_sums(logits, labels, weights=None, mask=None):
     return nll.sum(), w.sum()
 
 
+def _pmean_grads(params, group):
+    """Average the parameters' gradients over `group`: one all-reduce of
+    the gradients laid end to end, divided by the world size."""
+    world = dist.get_world_size(group)
+
+    def pmean(flat):
+        dist.all_reduce(flat, group=group)
+        flat /= world
+
+    collective_flat([p.grad for p in params if p.grad is not None], pmean)
+
+
 def make_train_step(modalities: Sequence[str] = ("MRI", "PET"),
                     adversarial: bool = True,
                     aug_cfg: Optional[AugmentConfig] = None,
-                    class_weights=None, mask_bn: bool = False):
+                    class_weights=None, mask_bn: bool = False, group=None):
     """Returns step(state, batch) -> aux. `batch` maps each modality to a
     (B, X, Y, Z) volume batch (float or uint8), 'label' to (B,) class
     indices and, optionally, 'mask' to (B,) 0/1 weights of real samples.
@@ -104,7 +128,12 @@ def make_train_step(modalities: Sequence[str] = ("MRI", "PET"),
     `label` and `mask`.
 
     mask_bn=True feeds the mask into every BatchNorm's batch moments, so a
-    duplicate-padded batch trains like its real samples alone."""
+    duplicate-padded batch trains like its real samples alone.
+
+    group: a torch.distributed process group: `batch` is this rank's rows
+    of the global batch, and the losses, BatchNorm moments and gradients
+    are those of the global batch (see the module's docstring). `logits`,
+    `d_mri`, `d_pet`, `label` and `mask` stay this rank's rows."""
     modalities = tuple(modalities)
 
     def step(state: TrainState, batch) -> dict:
@@ -118,25 +147,28 @@ def make_train_step(modalities: Sequence[str] = ("MRI", "PET"),
             mask = torch.as_tensor(mask, dtype=torch.float32).to(device)
         bn_mask = mask if mask_bn else None
 
-        out = model(*inputs, train=True, bn_mask=bn_mask,
-                    generator=state.generator)
+        with batchnorm.synced(group):
+            out = model(*inputs, train=True, bn_mask=bn_mask,
+                        generator=state.generator)
+        logits = out[0] if adversarial else out
+        ce_n, ce_d = psum(torch.stack(_ce_sums(logits, labels, class_weights,
+                                               mask)), group)
+        ce = ce_n / ce_d
         if adversarial:
-            logits, d_mri, d_pet = out
-            ce_n, ce_d = _ce_sums(logits, labels, class_weights, mask)
-            ce = ce_n / ce_d
-            ad = adversarial_loss(d_mri, d_pet, mask)
+            _, d_mri, d_pet = out
+            ad = adversarial_loss(d_mri, d_pet, mask, group)
             loss = ce + ad
             aux = {"logits": logits, "d_mri": d_mri, "d_pet": d_pet,
                    "ce_loss": ce, "ad_loss": ad}
         else:
-            logits = out
-            ce_n, ce_d = _ce_sums(logits, labels, class_weights, mask)
-            loss = ce_n / ce_d
+            loss = ce
             aux = {"logits": logits, "ce_loss": loss,
                    "ad_loss": torch.zeros((), device=device)}
 
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if group is not None:
+            _pmean_grads(model.parameters(), group)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
@@ -151,7 +183,7 @@ def make_train_step(modalities: Sequence[str] = ("MRI", "PET"),
 
 
 def make_eval_step(modalities: Sequence[str] = ("MRI", "PET"),
-                   adversarial: bool = True):
+                   adversarial: bool = True, group=None):
     """Returns step(state, metrics, batch) -> (metrics, out): the eval
     forward (train=False) under `torch.inference_mode()` in `state.dtype`,
     its inputs prepared as the train step prepares them without
@@ -162,7 +194,12 @@ def make_eval_step(modalities: Sequence[str] = ("MRI", "PET"),
     the batch may carry a 'mask' (B,) of real samples, so a ragged last
     batch can be padded (`data.pipeline.pad_batch`). `out` holds the
     per-sample `probs` (the positive class's softmax probability, in
-    float32), `label` and `mask`, for the exact ROC-AUC at epoch end."""
+    float32), `label` and `mask`, for the exact ROC-AUC at epoch end.
+
+    group: `batch` is this rank's rows of the global batch; the batch's
+    MetricState delta is all-reduced over the group, with `batches`
+    divided by the world size, so `metrics` counts the global batch on
+    every rank. `out` stays this rank's rows."""
     modalities = tuple(modalities)
 
     @torch.inference_mode()
@@ -179,9 +216,23 @@ def make_eval_step(modalities: Sequence[str] = ("MRI", "PET"),
             mask = torch.as_tensor(mask, dtype=torch.float32).to(device)
         nll = cross_entropy(logits, labels, reduce=False)
         probs = torch.softmax(logits.float(), dim=-1)[:, -1]
-        metrics = metrics.update(logits, labels, nll, mask)
+        metrics = metrics.add(_global_delta(
+            MetricState.zero(device).update(logits, labels, nll, mask),
+            group))
         if mask is None:
             mask = torch.ones(labels.shape[0], device=device)
         return metrics, {"probs": probs, "label": labels, "mask": mask}
 
     return step
+
+
+def _global_delta(delta: MetricState, group) -> MetricState:
+    """A batch's MetricState delta summed over `group` (one all-reduce),
+    with `batches` divided back to count loader batches, not ranks; the
+    delta itself without a group."""
+    if group is None:
+        return delta
+    fields = [getattr(delta, f.name) for f in dataclasses.fields(delta)]
+    collective_flat(fields, lambda flat: dist.all_reduce(flat, group=group))
+    delta.batches /= dist.get_world_size(group)
+    return delta

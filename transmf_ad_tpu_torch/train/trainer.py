@@ -1,6 +1,6 @@
 """High-level Trainer: the reference's `train_model` topology as a component.
 
-Port of transmf_ad_tpu/train/trainer.py for one device. It composes the
+Port of transmf_ad_tpu/train/trainer.py. It composes the
 train and eval steps, the event engine, the metric accumulators, the LR
 schedule, best-checkpoint retention and the test evaluation as the
 reference driver does with ignite (reference:
@@ -15,11 +15,24 @@ at its end: that fetch is the epoch's only synchronization, so the launches
 of one step queue behind the last while the host prepares the next. A
 `latest.pt` full-state checkpoint enables crash-resume (absent upstream).
 
-Not ported yet: the data-parallel mesh and the multi-host runtime, remat,
-the profiler trace and the NaN debugging switch (ROADMAP.md Queue 1 items 8
-and 9). A config that asks for one of them raises: `remat` and `debug_nans`,
-which the CLI's flags reach, on a true value; the other fields of the JAX
-package's config are not fields here.
+Data parallel (the JAX package's mesh branches): with a process group up
+(`parallel.init_distributed`, from `coordinator_address`, `num_processes`
+and `process_id`, called before any other CUDA call) every rank runs the
+same loop on its rows of each global batch. The state is broadcast from
+rank 0 after `init_state` and after every load; the feeds pad each batch
+to a multiple of the world size and give each rank its rows (the device
+cache row-sharded); the steps all-reduce BatchNorm moments, losses,
+gradients and the eval metrics; the epoch's logits, labels and masks are
+all-gathered, so the logged metrics, the best epoch and `res_fold` are
+the same on every rank. Only rank 0 logs and writes checkpoints (the
+others get a `NullLogger`), with a barrier after each write; `latest.pt`
+holds every rank's generator, and a resume gives each rank its own.
+
+Not ported: the tensor-parallel 'model' axis (`model_parallel` > 1 raises;
+ROADMAP.md Queue 1 item 10), the profiler trace and the NaN debugging
+switch (`debug_nans`, which the CLI's flags reach, raises on a true value);
+the JAX config's `use_pallas`, `data_parallel` and profiler fields are
+not fields here: a process group is always the data axis.
 """
 
 from __future__ import annotations
@@ -30,9 +43,14 @@ from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.transforms import AugmentConfig
 from ..models import ADVERSARIAL, SINGLE_MODALITY, build_model
+from ..parallel import (NullLogger, fetch_global, init_distributed,
+                        is_primary, padded_batch, place_global,
+                        process_count, process_index, shard_state,
+                        world_group)
 from ..serving import resolve_dtype as _resolve_auto
 from ..utils.logging import Logger
 from ..utils.weights import init_weights
@@ -43,8 +61,8 @@ from .optim import MILESTONES, multistep_schedule
 from .steps import create_state, make_eval_step, make_train_step
 
 # flags of the JAX package's TrainerConfig that the CLI reaches and this
-# port does not carry out yet; a config that sets one raises
-UNPORTED = ("remat", "debug_nans")
+# port does not carry out; a config that sets one raises
+UNPORTED = ("debug_nans",)
 
 
 @dataclass
@@ -85,15 +103,29 @@ class TrainerConfig:
     aug_exact: bool = False
     progress: bool = True  # per-iteration progress bar (ignite parity)
     device: str = "cuda"  # 'cuda' or 'cpu'
-    remat: bool = False  # not ported yet (ROADMAP.md Queue 1 item 8)
+    # recompute the encoder blocks whose intermediates are worth it in the
+    # backward (nn/blocks.py::SNet; activation memory for conv recompute)
+    remat: bool = False
     debug_nans: bool = False  # not ported
+    model_parallel: int = 1  # tensor-parallel axis: not ported (> 1 raises)
+    # data parallel: join a process group before anything else (one
+    # trainer process per card; 'auto' = torchrun's environment).
+    # save_dir must be storage every rank sees.
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
 
     def __post_init__(self):
         bad = [k for k in UNPORTED if getattr(self, k)]
         if bad:
             raise NotImplementedError(
-                f"TrainerConfig: {bad} not ported yet (remat: ROADMAP.md "
-                "Queue 1 item 8; NaN debugging has no port)")
+                f"TrainerConfig: {bad} not ported (NaN debugging has no "
+                "port)")
+        if self.model_parallel > 1:
+            raise NotImplementedError(
+                "TrainerConfig: model_parallel > 1, the tensor-parallel "
+                "'model' axis, is not ported yet (ROADMAP.md Queue 1 item "
+                "10); data parallelism over the process group is")
 
 
 def resolve_dtype(dtype, device) -> torch.dtype:
@@ -122,6 +154,16 @@ class Trainer:
             raise RuntimeError("TrainerConfig.device is 'cuda' but no CUDA "
                                "device is available; pass device='cpu' to "
                                "train on the CPU")
+        # before any other CUDA call: it makes this rank's card current
+        init_distributed(cfg.coordinator_address, cfg.num_processes,
+                         cfg.process_id, device=self.device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.primary = is_primary()
+        if not self.primary:
+            logger = NullLogger()  # side effects belong to rank 0
+        self.group = world_group()
+        self.world, self.rank = process_count(), process_index()
         self.logger = logger or Logger(cfg.save_dir)
         self.dtype = resolve_dtype(cfg.dtype, self.device)
         self.model = None  # built by init_state, which sees the volumes
@@ -141,11 +183,13 @@ class Trainer:
         (`utils/weights.py::init_weights`, drawn on the CPU, so every
         device starts from the same weights), the optimizer and scheduler,
         and the generator of the train step's draws, seeded from
-        `cfg.seed + 1` as the JAX package's train key is."""
+        `cfg.seed + 1` as the JAX package's train key is (and from the
+        rank: `rank_seed`). Under a group the state is then broadcast from
+        rank 0."""
         cfg = self.cfg
         self.model = build_model(
             cfg.model, dim=cfg.dim, depth=cfg.depth, heads=cfg.heads,
-            dropout=cfg.dropout,
+            dropout=cfg.dropout, remat=cfg.remat,
             input_shape=tuple(sample_batch[self.modalities[0]].shape[1:4]),
             **(cfg.model_kwargs or {}))
         milestones = (MILESTONES[cfg.optimizer] if cfg.milestones is None
@@ -154,7 +198,8 @@ class Trainer:
                                               steps_per_epoch)
         init_weights(self.model, torch.Generator().manual_seed(cfg.seed))
         self.state = create_state(
-            self.model, self.device, self.dtype, seed=cfg.seed + 1,
+            self.model, self.device, self.dtype,
+            seed=rank_seed(cfg.seed + 1, self.rank),
             name=cfg.optimizer, lr=cfg.lr, weight_decay=cfg.weight_decay,
             steps_per_epoch=steps_per_epoch, milestones=milestones,
             momentum=cfg.momentum)
@@ -162,17 +207,19 @@ class Trainer:
             self.load_checkpoint(cfg.pretrained_path)
             self.logger.print_message(
                 f"Load pre-training model {cfg.pretrained_path}")
+        self.state = shard_state(self.state, self.group)
         return self.state
 
     def load_checkpoint(self, path: str):
         """Restore model weights and BN running statistics into the live
         state from a `.pt` / `.pth` file (the port's best checkpoint, or a
         reference torch checkpoint under the same names). Requires
-        `init_state` to have run. A flax `.msgpack` raises."""
+        `init_state` to have run. A flax `.msgpack` raises. Every rank
+        loads; under a group rank 0's copy is then broadcast."""
         if self.state is None:
             raise RuntimeError("load_checkpoint requires init_state first")
         _load_model(self.state.model, ckpt.load(path))
-        return self.state
+        return shard_state(self.state, self.group)
 
     def evaluate_from_checkpoint(self, loader, checkpoint_path: str) -> dict:
         """Public one-call scoring entry: initialize (if needed), restore
@@ -189,7 +236,8 @@ class Trainer:
         """Pad the batch to a fixed leading size with ZEROS (not
         `pad_batch`'s wrap-around duplicates, as in the JAX package) and
         attach a validity mask; numpy arrays stay numpy arrays and tensors
-        stay tensors."""
+        stay tensors. `pad_to` is a multiple of the world size, so the
+        batch splits over the ranks."""
         n = batch["label"].shape[0]
         out = {}
         for k in (*self.modalities, "label"):
@@ -226,7 +274,7 @@ class Trainer:
         exact ROC-AUC."""
         if self._eval_step is None:
             self._eval_step = make_eval_step(self.modalities,
-                                             self.adversarial)
+                                             self.adversarial, self.group)
         eval_step = self._eval_step
         pad_to = None
         ms = MetricState.zero(self.device)
@@ -245,15 +293,19 @@ class Trainer:
                 if pad_to is None:
                     base = (getattr(loader, "batch_size", None)
                             or b["label"].shape[0])
-                    pad_to = max(base, b["label"].shape[0])
-                dev = self._place(self._pad_eval_batch(b, pad_to))
+                    pad_to = padded_batch(max(base, b["label"].shape[0]),
+                                          self.world)
+                dev = self._place(place_global(
+                    self._pad_eval_batch(b, pad_to), self.world, self.rank))
             ms, out = eval_step(self.state, ms, dev)
             probs.append(out["probs"])
             labels.append(out["label"])
             masks.append(out["mask"])
-        probs = torch.cat(probs).float().cpu().numpy()
-        labels = torch.cat(labels).cpu().numpy()
-        valid = torch.cat(masks).cpu().numpy() > 0
+        # every rank's rows, batch by batch, in the global order
+        parts = len(probs)
+        probs = fetch_global(torch.cat(probs), parts, self.group)
+        labels = fetch_global(torch.cat(labels), parts, self.group)
+        valid = fetch_global(torch.cat(masks), parts, self.group) > 0
         return ms, probs[valid], labels[valid]
 
     def evaluate(self, loader) -> dict:
@@ -280,14 +332,17 @@ class Trainer:
         """The feed selection of the JAX package's `fit`: the device cache
         when the train set fits the budget (and val too, when both fit),
         else the hybrid tier when at least two batches' rows fit, else the
-        streaming DeviceFeed. Returns (train feed, val feed)."""
+        streaming DeviceFeed. Under a group the batch is padded to a
+        multiple of the world size, the device cache is row-sharded
+        (`cache_bytes` counts a rank's rows) and the hybrid tier is not
+        used, as in the JAX package. Returns (train feed, val feed)."""
         from ..data.device_cache import (DeviceCachedFeed, HybridCachedFeed,
                                          cache_bytes, hbm_budget)
         from ..data.pipeline import DeviceFeed
 
         cfg, logger = self.cfg, self.logger
-        pad_to = (getattr(train_loader, "batch_size", None)
-                  or sample["label"].shape[0])
+        pad_to = padded_batch(getattr(train_loader, "batch_size", None)
+                              or sample["label"].shape[0], self.world)
         feed = train_loader
         val_feed = val_loader
         already_fed = (isinstance(train_loader, DeviceFeed)
@@ -296,20 +351,22 @@ class Trainer:
                 and cfg.device_cache in ("auto", "on", "hybrid") \
                 and hasattr(train_loader, "source"):
             budget = hbm_budget(self.device)
-            tb = cache_bytes(train_loader)
+            tb = cache_bytes(train_loader, self.world)
             if tb <= budget and cfg.device_cache != "hybrid":
                 feed = DeviceCachedFeed(train_loader, self.device,
-                                        pad_to=pad_to)
-                vb = (cache_bytes(val_loader)
+                                        pad_to=pad_to, group=self.group)
+                vb = (cache_bytes(val_loader, self.world)
                       if hasattr(val_loader, "source") else budget)
                 if tb + vb <= budget:
-                    val_feed = DeviceCachedFeed(val_loader, self.device)
+                    val_feed = DeviceCachedFeed(val_loader, self.device,
+                                                group=self.group)
                 logger.print_message(
                     f"HBM dataset cache: train {tb / 2**20:.0f} MB/device"
                     + ("" if val_feed is val_loader
                        else f" + val {vb / 2**20:.0f} MB/device")
                     + f" (budget {budget / 2**20:.0f} MB)")
-            elif cfg.device_cache in ("auto", "hybrid"):
+            elif self.group is None \
+                    and cfg.device_cache in ("auto", "hybrid"):
                 # over-budget (or forced): hot fraction on the device, cold
                 # rows streamed; the transfer shrinks by the hot fraction
                 hybrid = HybridCachedFeed(train_loader, self.device,
@@ -340,7 +397,7 @@ class Trainer:
                 f"{why}; use device_cache='auto' to stream")
         if feed is train_loader and not isinstance(train_loader, DeviceFeed):
             feed = DeviceFeed(train_loader, self.device, depth=2,
-                              pad_to=pad_to)
+                              pad_to=pad_to, group=self.group)
         return feed, val_feed
 
     def fit(self, train_loader, val_loader, test_loader=None,
@@ -375,7 +432,8 @@ class Trainer:
                     st = _cast_after_transform(st, self.modalities,
                                                self.dtype)
                 train_loader.sample_transform = st
-        step_kw = dict(aug_cfg=aug_cfg, class_weights=class_weights)
+        step_kw = dict(aug_cfg=aug_cfg, class_weights=class_weights,
+                       group=self.group)
         train_step = make_train_step(
             self.modalities, self.adversarial,
             mask_bn=(cfg.mask_bn is True), **step_kw)
@@ -384,7 +442,8 @@ class Trainer:
             make_train_step(self.modalities, self.adversarial,
                             mask_bn=True, **step_kw)
             if cfg.mask_bn == "ragged" else train_step)
-        self._eval_step = make_eval_step(self.modalities, self.adversarial)
+        self._eval_step = make_eval_step(self.modalities, self.adversarial,
+                                         self.group)
         feed, val_feed = self._train_feeds(train_loader, val_loader, sample,
                                            exact_aug)
         self.train_feed, self.val_feed = feed, val_feed
@@ -401,16 +460,23 @@ class Trainer:
                         "WARNING: latest checkpoint has no optimizer state; "
                         "resuming weights only (Adam moments and LR-schedule "
                         "position reset)")
-                _restore_state(self.state, restored)
+                if not _restore_state(self.state, restored, self.rank,
+                                      self.world):
+                    logger.print_message(
+                        "WARNING: latest checkpoint holds no generator state "
+                        f"for {self.world} ranks; the ranks keep fresh "
+                        "generators")
+                self.state = shard_state(self.state, self.group)
                 start_epoch = int(restored["epoch"])
                 logger.print_message(f"Resumed from epoch {start_epoch}")
 
         def step_fn(engine, batch):
-            # host-side real-sample count the feeds attach; a short final
-            # batch routes to the mask-weighted-BN step
+            # host-side real-sample count the feeds attach (of the global
+            # batch: this rank holds 1 / world of it); a short final batch
+            # routes to the mask-weighted-BN step
             n_real = batch.pop("_n_real", None)
             ragged = (n_real is not None
-                      and n_real < batch["label"].shape[0])
+                      and n_real < batch["label"].shape[0] * self.world)
             step = train_step_masked if ragged else train_step
             aux = step(self.state, batch)
             epoch_outputs.append(aux)  # device tensors; not synced here
@@ -437,7 +503,7 @@ class Trainer:
                     "(no full batches)")
                 return
             # the epoch's one synchronization: every step's outputs at once
-            got = _fetch(outs, self.adversarial)
+            got = _fetch(outs, self.adversarial, self.group)
             ce = float(np.mean(got["ce_loss"]))
             ad = float(np.mean(got["ad_loss"]))
             valid = got["mask"] > 0  # drop padded duplicates from metrics
@@ -472,16 +538,28 @@ class Trainer:
             )
             logger.print_message(_fmt_metrics(metrics))
             engine.state.metrics["val"] = metrics
-            checkpointer.maybe_save(
-                _saveable(self.state), metrics["accuracy"],
-                engine.state.epoch)
+            # the val metrics, and so the best epoch, are the same on every
+            # rank; rank 0 writes, the others track the same decision, and
+            # the barrier keeps them from reading a file before it lands
+            if self.primary:
+                checkpointer.maybe_save(
+                    _saveable(self.state), metrics["accuracy"],
+                    engine.state.epoch)
+            else:
+                checkpointer.track(metrics["accuracy"], engine.state.epoch)
             if cfg.save_latest_every and (
                 engine.state.epoch % cfg.save_latest_every == 0
             ):
-                ckpt.save_latest(cfg.save_dir, {
-                    **_saveable(self.state, full=True),
-                    "epoch": engine.state.epoch,
-                })
+                latest = _saveable(self.state, full=True)
+                if self.group is not None:  # every rank's generator
+                    latest["generators"] = [None] * self.world
+                    dist.all_gather_object(latest["generators"],
+                                           latest["generator"], self.group)
+                if self.primary:
+                    ckpt.save_latest(cfg.save_dir, {
+                        **latest, "epoch": engine.state.epoch})
+            if self.group is not None:
+                dist.barrier(self.group)
 
         trainer.run(feed, cfg.epochs, start_epoch=start_epoch)
 
@@ -489,7 +567,7 @@ class Trainer:
         if test_loader is not None:
             best = checkpointer.best_path()
             if best is not None:
-                _load_model(self.state.model, ckpt.load(best))
+                self.load_checkpoint(best)
                 logger.print_message(f"Load best model {best}")
             metrics = self.evaluate(test_loader)
             logger.print_message("*" * 62)
@@ -500,18 +578,28 @@ class Trainer:
         return res_fold
 
 
-def _fetch(outs, adversarial: bool) -> dict:
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of rank `rank`'s generator: `seed` itself on rank 0 (the
+    single-process draws), another stream on every other rank, as the
+    JAX package folds the data axis's index into its key."""
+    return seed + (rank << 32)
+
+
+def _fetch(outs, adversarial: bool, group=None) -> dict:
     """The train steps' outputs of one epoch as numpy arrays, stacked on
-    the device and copied to the host once per key."""
+    the device and copied to the host once per key; the per-sample keys
+    gathered from every rank in the global order (the losses are global
+    already)."""
     keys = ["ce_loss", "ad_loss", "logits", "label", "mask"]
     if adversarial:
         keys += ["d_mri", "d_pet"]
     out = {}
     for k in keys:
         vals = [o[k] for o in outs]
-        joined = torch.stack(vals) if vals[0].ndim == 0 else torch.cat(vals)
-        out[k] = joined.float().cpu().numpy() if joined.is_floating_point() \
-            else joined.cpu().numpy()
+        if vals[0].ndim == 0:
+            out[k] = torch.stack(vals).float().cpu().numpy()
+        else:
+            out[k] = fetch_global(torch.cat(vals), len(vals), group)
     return out
 
 
@@ -566,13 +654,22 @@ def _saveable(state, full: bool = False):
             "generator": state.generator.get_state()}
 
 
-def _restore_state(state, restored):
-    """Put a `latest.pt` dict (or a bare state_dict) back into `state`."""
+def _restore_state(state, restored, rank: int = 0, world: int = 1) -> bool:
+    """Put a `latest.pt` dict (or a bare state_dict) back into `state`;
+    rank `rank` of `world` takes its own generator from 'generators' (a
+    single-process file's 'generator' is rank 0's). Returns False when a
+    full-state file holds no generator for this world size (the
+    generator is then left as it is)."""
     _load_model(state.model, restored.get("model", restored))
     if "optimizer" in restored:
         state.optimizer.load_state_dict(restored["optimizer"])
         state.scheduler.load_state_dict(restored["scheduler"])
     if "step" in restored:
         state.step = int(restored["step"])
-    if "generator" in restored:
-        state.generator.set_state(restored["generator"])
+    gens = restored.get("generators")
+    if gens is None and "generator" in restored:
+        gens = [restored["generator"]]
+    if gens is None or len(gens) != world:
+        return "model" not in restored
+    state.generator.set_state(gens[rank])
+    return True
