@@ -203,6 +203,32 @@ before the final line:
             0` on the same ranks reproduces the fold's test metrics; (c)
             the same CLI as one rank on NCCL (`--num_processes 1
             --process_id 0`)
+18. ops, artifact, sharded serving, profiler  (a) `torch.library.opcheck`
+            of every op of the `transmf` namespace on CUDA tensors at the
+            small odd shapes of tests/test_torch_library_ops.py, float32 and
+            bfloat16 (the fake implementation against the kernel's output:
+            shape, dtype, strides, no aliasing; the autograd registration;
+            aot_autograd), then the host microseconds a call of K1 and K4
+            through the old wrapper's path and through the op (printed);
+            (b) full-width ModelAd (phase 4's seeded weights) exported with
+            a symbolic batch at 91x109x91 and loaded by a child that imports
+            the serving module and the ops alone (not `models`), serving
+            batches 8 and 3: the probabilities equal `make_inference_fn`'s
+            bit for bit (where the card differs, within one bf16 ulp, the
+            largest difference printed), every kernel's launches and
+            variants per request equal; export and load seconds and both
+            request ms printed; (c) the same for transformer_res at
+            182x218x182, batches 6 and 1 (K8 and K10 launch from the loaded
+            program); (d) `make_sharded_inference_fn` on two Gloo ranks
+            sharing the card, float32: a global batch of 8 pairs of
+            full-width ModelAd at 91x109x91 against one process within 1e-4
+            of the probabilities' scale, the ranks bit-identical, a global
+            batch of 3 raising ValueError on both; (e) `Trainer.fit` of
+            full-width ModelAd (phase 14's synthetic tree and fold-0
+            trainer, 3 epochs) with `profile_dir` set and the window over
+            the second epoch: one Chrome trace holding the port's kernels,
+            by their `__global__` names in csrc/, beside cuDNN's, and its
+            top device items printed
 
 The line before the last is a JSON object with one entry per kernel: `ms`,
 `plain_ms`, `bound_ms`, `bound_by` and `library_ms` belong to the bfloat16
@@ -210,8 +236,10 @@ run at the first shape listed for the kernel (K1's full-resolution case is
 under `full_resolution`, its launch floor under `launch_floor_ms`),
 `max_abs_err` is the largest over all its cases, `launches` its count over
 the six serving and train runs, the learning check, the two k-fold CLI
-runs of phase 14, the four CLI runs of phase 15, phase 16's bf16 runs and
-every rank of phase 17 together, each counted from zero. Before it a `[time]` line gives the
+runs of phase 14, the four CLI runs of phase 15, phase 16's bf16 runs,
+every rank of phase 17 and phase 18's runs (a request of each loaded
+program at each batch, each sharded rank, the profiled fit) together, each
+counted from zero. Before it a `[time]` line gives the
 seconds each group of phases took. The last line is
 {"ok": true, "device": {...}}.
 
@@ -292,6 +320,16 @@ REMAT_EXTRA = {"stem_conv_stats": 2, "band_conv": 4, "affine_act_pool": 6}
 # phase 17, data parallel: the ranks that share the card, the step check's
 # global batch, the steps profiled after it, the children's time limit (s)
 DP_WORLD, DP_BATCH, DP_PROFILED, DP_TIMEOUT = 2, 8, 3, 300
+# phase 18: the artifacts' request batches (ModelAd at VOLUME,
+# transformer_res at FULL_VOLUME) and the calls of each (the first not
+# timed); the sharded ranks, their global batch and the children's time
+# limit (s); the profiled fit's epochs (the window is the second)
+ARTIFACT_BATCHES, RES_ARTIFACT_BATCHES, ARTIFACT_REPEATS = (8, 3), (6, 1), 6
+SHARD_WORLD, SHARD_BATCH, SHARD_TIMEOUT = 2, 8, 300
+PROFILE_EPOCHS = 3
+# phase 18 (a): K4 / K7's (mode, lanes) opchecked on the card (the CPU
+# tests take all four)
+OPCHECK_POOLS = (("max", True), ("avg", False))
 SERVING_KERNELS = ("token_pool", "attention_fwd", "stem_conv",
                    "affine_act_pool")
 TRAIN_KERNELS = ("token_pool", "attention_fwd", "affine_act_pool",
@@ -2998,7 +3036,8 @@ def dp_child(task_path, rank):
     torch.backends.cudnn.allow_tf32 = False
     with open(task_path) as f:
         task = json.load(f)
-    {"step": _dp_child_step, "cli": _dp_child_cli}[task["kind"]](task, rank)
+    {"step": _dp_child_step, "cli": _dp_child_cli, "load": _child_load,
+     "shard": _child_shard}[task["kind"]](task, rank)
     return 0
 
 
@@ -3197,13 +3236,398 @@ def dp_check(card):
     return launches
 
 
+def _kernel_names():
+    """The `__global__` names of the port's CUDA sources."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "transmf_ad_tpu_torch", "csrc")
+    names = set()
+    for path in glob.glob(os.path.join(src, "*.cu*")):
+        with open(path) as f:
+            names.update(re.findall(
+                r"__global__\s+(?:void\s+)?(?:__\w+__\s*\([^)]*\)\s*)*"
+                r"(?:void\s+)?(\w+)\s*\(", f.read()))
+    return names
+
+
+class _Wrapper(torch.autograd.Function):
+    """The kernels' entry path before they were registered ops: an
+    autograd.Function around the launch path (forward only), the
+    yardstick of `_op_host_us`."""
+
+    @staticmethod
+    def forward(ctx, launch, *args):
+        return launch(*args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError
+
+
+def _op_host_us(card):
+    """Phase 18 (a), second half: the host's microseconds a call of K1
+    ((8,150,128) x2) and of K4 (channels, max, pooling the stage-3 output
+    (8,22,27,22,128) to (8,11,13,11,128)) through the old wrapper's path
+    (`_Wrapper`) and through the registered op, in inference mode (serving)
+    and with inputs that require grad (a train step's forward), in turns:
+    old, op, op, old. Printed, not held."""
+    from transmf_ad_tpu_torch.ops import pool3d, pooling
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    mri, pet = (_randn(g, 8, 150, 128).to(torch.bfloat16) for _ in range(2))
+    y = _randn(g, 8, 22, 27, 22, 128).to(torch.bfloat16)
+    s, b = 1.0 + 0.5 * _randn(g, 128), 0.3 * _randn(g, 128)
+    calls = {
+        "K1": ((pooling._token_pool_launch, mri, pet),
+               lambda *a: pooling.fused_token_pool(*a)),
+        "K4": ((lambda *a: pool3d._affine_act_pool_launch(
+                    *a, 0.01, "max", False, False), y, s, b),
+               lambda *a: pool3d.max_pool3d_2x2_affine_act_bc(*a))}
+    out = {}
+    for name, ((launch, *args), op) in calls.items():
+        grads = [a.detach().clone().requires_grad_(a.is_floating_point())
+                 for a in args]
+        for mode, xs in (("serving", args), ("train", grads)):
+            with (torch.inference_mode() if mode == "serving"
+                  else contextlib.nullcontext()):
+                turns = [_host_us(lambda: _Wrapper.apply(launch, *xs)),
+                         _host_us(lambda: op(*xs)),
+                         _host_us(lambda: op(*xs)),
+                         _host_us(lambda: _Wrapper.apply(launch, *xs))]
+            out[name, mode] = turns
+    text = "; ".join(f"{k} {mode} {(t[0] + t[3]) / 2:.1f} -> "
+                     f"{(t[1] + t[2]) / 2:.1f} (turns "
+                     f"{', '.join(f'{x:.1f}' for x in t)})"
+                     for (k, mode), t in out.items())
+    print(f"[ops] host us a call, old wrapper -> registered op (old, op, "
+          f"op, old): {text}; on {card}", flush=True)
+    return out
+
+
+def opcheck_card(card):
+    """Phase 18 (a): `torch.library.opcheck` of every op on CUDA tensors
+    at the small odd shapes of tests/test_torch_library_ops.py (K4 / K7 in
+    two of their four (mode, lanes)), float32 and bfloat16 (schema, fake
+    implementation against the kernel's output, autograd registration,
+    aot_autograd with dynamic shapes); then the ops' host cost
+    (`_op_host_us`). Its launches are checks: the counts
+    are reset after it. The test file is loaded by its path: `tests` is a
+    namespace package, which another installed `tests` would shadow."""
+    import importlib.util
+
+    from transmf_ad_tpu_torch.ops import reset_launch_counts
+
+    spec = importlib.util.spec_from_file_location(
+        "_op_cases", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  "tests", "test_torch_library_ops.py"))
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+
+    t0 = time.perf_counter()
+    done = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for op, args in cases._cases(torch.Generator().manual_seed(1),
+                                     dtype, "cuda", OPCHECK_POOLS):
+            torch.library.opcheck(op, args)
+            done.append(op._opname)
+    torch.cuda.synchronize()
+    print(f"[ops] opcheck passed on the card: {len(done)} cases of "
+          f"{len(set(done))} ops in 2 dtypes, {time.perf_counter() - t0:.1f}"
+          f" s", flush=True)
+    _op_host_us(card)
+    reset_launch_counts()
+
+
+def _artifact_model(name):
+    """Full-width `name` with phase 4's seeded weights and BatchNorm
+    statistics."""
+    from transmf_ad_tpu_torch.models import build_model
+    from transmf_ad_tpu_torch.utils.weights import init_weights
+
+    g = torch.Generator().manual_seed(0)
+    model = build_model(name)
+    init_weights(model, g)
+    randomize_bn(model, g)
+    return model
+
+
+def _artifact_inputs(batch, volume, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((batch, *volume), dtype=np.float32)
+                 for _ in range(2))
+
+
+def _served(fn, vols):
+    """ARTIFACT_REPEATS calls of fn(*vols): (the last probabilities on the
+    CPU, the median ms of the calls after the first, the launches and
+    variants of the last call)."""
+    times = []
+    for _ in range(ARTIFACT_REPEATS):
+        reset_counts()
+        t0 = time.perf_counter()
+        probs = fn(*vols)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return (probs.float().cpu(), float(np.median(times[1:])), _launches(),
+            _require_variants("served", {}))
+
+
+def _child_load(task, rank):
+    """The child of phase 18 (b) and (c): it imports the serving module and
+    the ops alone, loads each artifact twice (timed) and serves its
+    batches."""
+    from transmf_ad_tpu_torch.serving import load_inference
+
+    torch.zeros(1, device="cuda")  # the card's context: not the loads'
+    out = []
+    for art in task["artifacts"]:
+        # twice: the process's first load also imports the deserialiser
+        loads = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn = load_inference(art["path"])
+            loads.append(time.perf_counter() - t0)
+        out.append({"load_s": loads, "served": {
+            b: _served(fn, _artifact_inputs(b, art["volume"], b))
+            for b in art["batches"]}})
+    imported = sorted(m for m in sys.modules if m.startswith(
+        ("transmf_ad_tpu_torch.models", "transmf_ad_tpu_torch.nn")))
+    torch.save({"artifacts": out, "imported": imported},
+               os.path.join(task["dir"], "load.pt"))
+
+
+def _child_shard(task, rank):
+    """A rank of phase 18 (d): once the parent's go-ahead file exists (the
+    card is then the ranks' alone), `make_sharded_inference_fn` of
+    full-width ModelAd in float32 over the Gloo group serves the global
+    batch SHARD_BATCH (timed), then a global batch of 3, which must
+    raise."""
+    from transmf_ad_tpu_torch.models import build_model
+    from transmf_ad_tpu_torch.parallel import (init_distributed, shutdown,
+                                               world_group)
+    from transmf_ad_tpu_torch.serving import make_sharded_inference_fn
+
+    init_distributed(f"localhost:{task['port']}", task["world"], rank,
+                     backend="gloo", device="cuda")
+    try:
+        _wait_for_file(task["go"], SHARD_TIMEOUT)
+        model = build_model("ad")
+        model.load_state_dict(torch.load(task["weights"], weights_only=True))
+        fn = make_sharded_inference_fn(model, world_group(), "cuda",
+                                       torch.float32)
+        vols = _artifact_inputs(SHARD_BATCH, VOLUME, 1)
+        probs, ms, launches, _ = _served(fn, vols)
+        try:
+            fn(*(v[:3] for v in vols))
+            ragged = None
+        except ValueError as e:
+            ragged = str(e)
+        torch.save({"probs": probs, "ms": ms, "launches": launches,
+                    "ragged": ragged},
+                   os.path.join(task["dir"], f"shard_r{rank}.pt"))
+    finally:
+        shutdown()
+
+
+def _hold_served(tag, got, want):
+    """The loaded program's request against `make_inference_fn`'s: the
+    probabilities bit for bit or, where the card differs, within one bf16
+    ulp (the largest difference printed); every kernel's launches and
+    variants equal."""
+    (p, ms, launches, variants), (q, ms_live, live, live_variants) = got, want
+    diff = float((p - q).abs().max())
+    if diff and not _agree(p, q, _elem(BF16_RTOL, 0.0)):
+        raise AssertionError(f"{tag}: probabilities off by {diff}")
+    if launches != live or variants != live_variants:
+        raise AssertionError(f"{tag}: launches {launches} {variants}, "
+                             f"make_inference_fn {live} {live_variants}")
+    same = "bit for bit" if not diff else f"largest difference {diff}"
+    return (f"{tag}: {same}, {ms:.2f} ms/request (make_inference_fn "
+            f"{ms_live:.2f}), launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+
+
+def _profile_check(card, tmp):
+    """Phase 18 (e): one short `Trainer.fit` of full-width ModelAd (phase
+    14's synthetic tree and fold-0 trainer, bf16, augmentation on) with the
+    profiler window over the whole second epoch, its validation included:
+    a Chrome trace in `profile_dir` that holds the port's kernels by their
+    `__global__` names beside cuDNN's, and the window's top device items.
+    Returns the run's launches."""
+    from transmf_ad_tpu_torch.data import (ADNI, VolumeSource,
+                                           make_synthetic_adni)
+
+    root = os.path.join(tmp, "adni")
+    make_synthetic_adni(root, n_per_group=KFOLD_PER_CLASS, shape=VOLUME,
+                        groups=("CN", "AD"), seed=1,
+                        workers=os.cpu_count() or 1)
+    source = VolumeSource(ADNI(root, task="ADCN").data_dict,
+                          dtype=torch.bfloat16)
+    out = os.path.join(tmp, "trace")
+    trainer, (train, val) = _fold0_trainer(source, os.path.join(tmp, "run"),
+                                           2 * KFOLD_PER_CLASS)
+    k = len(train)  # iterations an epoch
+    trainer.cfg.epochs = PROFILE_EPOCHS
+    trainer.cfg.profile_dir, trainer.cfg.profile_steps = out, (k + 1,
+                                                              2 * k + 1)
+    reset_counts()
+    trainer.fit(train, val)
+    launches = _launches()
+    _require_variants("profiled fit", FAST)
+    (path,) = glob.glob(os.path.join(out, "*.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = sorted({e["name"] for e in events
+                     if e.get("name", "").startswith("iteration ")})
+    by_name = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    kernels = _kernel_names()
+    ours = {n for n in by_name
+            if any(re.search(rf"\b{kn}\b", n) for kn in kernels)}
+    cudnn = {n for n in by_name if n not in ours and re.search(
+        r"cudnn|xmma|implicit|conv|cutlass", n, re.I)}
+    want = [f"iteration {i}" for i in range(k + 1, 2 * k + 1)]
+    if ranges != sorted(want) or not ours or not cudnn:
+        raise AssertionError(f"profiled fit: ranges {ranges} (want {want}), "
+                             f"{len(ours)} port kernels, {len(cudnn)} "
+                             f"cuDNN kernels in {path}")
+    total = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    print(f"[profile] Trainer.fit, full-width ModelAd bf16, batch {BATCH}, "
+          f"{k} iterations an epoch, window over epoch 2 (iterations "
+          f"{k + 1}-{2 * k} and its validation): {os.path.basename(path)} "
+          f"{os.path.getsize(path) / 2**20:.1f} MiB, {len(by_name)} kernel "
+          f"names, {total / 1e3:.3f} device ms, port kernels "
+          f"{sum(by_name[n] for n in ours) / 1e3:.3f} ms ({len(ours)} "
+          f"names), cuDNN-like {sum(by_name[n] for n in cudnn) / 1e3:.3f} "
+          f"ms; on {card}", flush=True)
+    for name, us in top:
+        tag = "port" if name in ours else "cudnn" if name in cudnn else "torch"
+        print(f"[profile]   {us / 1e3:9.3f} ms {100 * us / total:5.1f}% "
+              f"[{tag}] {name[:110]}", flush=True)
+    return launches
+
+
+def artifact_check(card):
+    """Phase 18: the kernels as ops on the card, the serving artifact,
+    sharded serving and the Trainer's profiler window (see the module's
+    docstring). Returns the launch counts of its runs."""
+    from transmf_ad_tpu_torch.serving import (export_inference,
+                                              make_inference_fn)
+
+    laps = [("start", time.perf_counter())]
+    opcheck_card(card)
+    laps.append(("opcheck", time.perf_counter()))
+    runs, lines = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        # (d)'s ranks start first and wait for the go-ahead: their start-up
+        # overlaps the exports, their work comes after the timed requests
+        model = _artifact_model("ad")
+        weights = os.path.join(tmp, "ad.pt")
+        torch.save(model.state_dict(), weights)
+        shard_task = os.path.join(tmp, "shard.json")
+        go = os.path.join(tmp, "go")
+        with open(shard_task, "w") as f:
+            json.dump({"kind": "shard", "world": SHARD_WORLD,
+                       "port": _free_port(), "weights": weights, "go": go,
+                       "dir": tmp}, f)
+        ranks = [_spawn(["--dp-child", shard_task, str(r)],
+                        os.path.join(tmp, f"shard_r{r}.log"))
+                 for r in range(SHARD_WORLD)]
+        try:
+            arts, live = [], []
+            for name, volume, batches in (
+                    ("ad", VOLUME, ARTIFACT_BATCHES),
+                    ("transformer_res", FULL_VOLUME, RES_ARTIFACT_BATCHES)):
+                m = model if name == "ad" else _artifact_model(name)
+                path = os.path.join(tmp, f"{name}.pt2")
+                t0 = time.perf_counter()
+                export_inference(m, ("MRI", "PET"), path, volume)
+                export_s = time.perf_counter() - t0
+                fn = make_inference_fn(m, "cuda")
+                live.append({b: _served(fn, _artifact_inputs(b, volume, b))
+                             for b in batches})
+                arts.append({"path": path, "volume": volume,
+                             "batches": batches, "export_s": export_s})
+                del fn
+                torch.cuda.empty_cache()
+            load_task = os.path.join(tmp, "load.json")
+            with open(load_task, "w") as f:
+                json.dump({"kind": "load", "artifacts": arts, "dir": tmp}, f)
+            _wait_all([_spawn(["--dp-child", load_task, "0"],
+                              os.path.join(tmp, "load.log"))], SHARD_TIMEOUT)
+            laps.append(("export and load", time.perf_counter()))
+            loaded = torch.load(os.path.join(tmp, "load.pt"),
+                                weights_only=False)
+            if loaded["imported"]:
+                raise AssertionError(f"the loading child imported "
+                                     f"{loaded['imported']}")
+            for art, got, want in zip(arts, loaded["artifacts"], live):
+                name = os.path.basename(art["path"])
+                for b in art["batches"]:
+                    lines.append(_hold_served(f"{name} batch {b}",
+                                              got["served"][b], want[b]))
+                    runs[f"artifact {name} batch {b}"] = got["served"][b][2]
+                first, again = got["load_s"]
+                print(f"[artifact] {name} at {art['volume']}: export "
+                      f"{art['export_s']:.1f} s, load {first:.1f} s (again "
+                      f"{again:.1f} s; a child importing serving and ops "
+                      f"alone); "
+                      + "; ".join(lines[-len(art["batches"]):])
+                      + f"; on {card}", flush=True)
+            # (d): one process in float32 on the same pairs, then the ranks
+            fn = make_inference_fn(model, "cuda", torch.float32)
+            one, one_ms, _, _ = _served(
+                fn, _artifact_inputs(SHARD_BATCH, VOLUME, 1))
+            del fn
+            torch.cuda.empty_cache()
+            with open(go, "w"):
+                pass
+            _wait_all(ranks, SHARD_TIMEOUT)
+        finally:
+            for p in ranks:
+                if p.poll() is None:
+                    p.kill()
+        shards = [torch.load(os.path.join(tmp, f"shard_r{r}.pt"),
+                             weights_only=False) for r in range(SHARD_WORLD)]
+        share = _share(shards[0]["probs"], one, _sums(1e-4))
+        if not _agree(shards[0]["probs"], one, _sums(1e-4)) or any(
+                not torch.equal(s["probs"], shards[0]["probs"])
+                or "does not split" not in (s["ragged"] or "")
+                for s in shards):
+            raise AssertionError(
+                f"sharded serving: ranks {[s['probs'] for s in shards]}, "
+                f"one process {one}, ragged {[s['ragged'] for s in shards]}")
+        for r, s in enumerate(shards):
+            runs[f"sharded serving rank {r}"] = s["launches"]
+        print(f"[sharded] make_sharded_inference_fn, full-width ModelAd f32, "
+              f"global batch {SHARD_BATCH} at {VOLUME} on {SHARD_WORLD} Gloo "
+              f"ranks sharing the card: ranks bit-identical, against one "
+              f"process {float((shards[0]['probs'] - one).abs().max()):.3g} "
+              f"({share:.3f} of the 1e-4 rule); "
+              f"{[round(s['ms'], 2) for s in shards]} ms/request against "
+              f"{one_ms:.2f} for one process; a batch of 3 raises "
+              f"ValueError on every rank; on {card}", flush=True)
+        laps.append(("sharded serving", time.perf_counter()))
+        del model
+        torch.cuda.empty_cache()
+        runs["profiled fit"] = _profile_check(card, tmp)
+        laps.append(("profiled fit", time.perf_counter()))
+    spent = ", ".join(f"{name} {t - t_before:.1f}" for (_, t_before), (name, t)
+                      in zip(laps, laps[1:]))
+    print(f"[phase 18] seconds {laps[-1][1] - laps[0][1]:.1f} ({spent}) on "
+          f"{card}", flush=True)
+    return runs
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", nargs="+", default=(), metavar="KERNEL",
                         help="phases 1-3 for these kernels alone; prints no "
                         "result lines")
     parser.add_argument("--dp-child", nargs=2, metavar=("TASK", "RANK"),
-                        help=argparse.SUPPRESS)  # a rank of phase 17
+                        help=argparse.SUPPRESS)  # a child of phase 17 or 18
     args = parser.parse_args(argv)
     if args.dp_child:
         return dp_child(args.dp_child[0], int(args.dp_child[1]))
@@ -3245,7 +3669,7 @@ def main(argv=None) -> int:
     reset_launch_counts()  # phase 3 launched "column" on purpose
     lap("kernel checks")
     if only:
-        print(f"chip_smoke: --only {' '.join(only)}: phases 4-17 not run, "
+        print(f"chip_smoke: --only {' '.join(only)}: phases 4-18 not run, "
               "no result", flush=True)
         return 0
     side = {f"{name} at {keys} keys": round(times[name, label], 4)
@@ -3313,6 +3737,9 @@ def main(argv=None) -> int:
     data_parallel = dp_check(card)
     reset_counts()
     lap("data parallel")
+    artifact = artifact_check(card)
+    reset_counts()
+    lap("ops, artifact, sharded serving, profiler")
     runs = {"serving": serving, "train": trained,
             "serving, full resolution": full_serving,
             "train, full resolution": full_trained,
@@ -3320,7 +3747,7 @@ def main(argv=None) -> int:
             "train, full resolution, transformer_res": res_trained,
             "learning check": learned, "k-fold CLI": kfold,
             "k-fold CLI, CNN": kfold_cnn, **zoo, "remat": remat,
-            **data_parallel}
+            **data_parallel, **artifact}
     print(f"[launches] {runs}", flush=True)
     spent = ", ".join(f"{name} {t - t_before:.1f}" for (_, t_before), (name, t)
                       in zip(laps, laps[1:]))

@@ -19,6 +19,10 @@ each job's results go to `<out>/<job name>_r<rank>.pt`:
   synthetic tree, this rank's batches;
 - "allreduce": a differentiable all-reduce of (rank + 1) x and the
   gradient of its sum;
+- "serve": `make_sharded_inference_fn` of a model loaded from a state_dict
+  file, on the CPU in float32, over a global batch (an .npz): the
+  probabilities every rank gets back, and the `ValueError` a global batch
+  of 3 raises (its message);
 - "fit": `Trainer.fit` on a synthetic tree (the validation metrics of each
   epoch, `res_fold`, the generator at the end, every file this rank
   opened for writing), then a resumed `Trainer.fit` one epoch longer (each
@@ -278,8 +282,23 @@ def job_allreduce(job, group, world, rank):
     return {"y": y.detach(), "grad": x.grad}
 
 
+def job_serve(job, group, world, rank):
+    from transmf_ad_tpu_torch.serving import make_sharded_inference_fn
+
+    fn = make_sharded_inference_fn(_model(job), group, "cpu")
+    batch = _global_batch(job["batch"])
+    vols = [batch[k] for k in ("MRI", "PET")]
+    probs = fn(*vols)
+    try:
+        fn(*(v[:3] for v in vols))
+        ragged = None
+    except ValueError as e:
+        ragged = str(e)
+    return {"probs": probs, "ragged": ragged}
+
+
 JOBS = {"step": job_step, "eval": job_eval, "feeds": job_feeds,
-        "fit": job_fit, "allreduce": job_allreduce}
+        "fit": job_fit, "allreduce": job_allreduce, "serve": job_serve}
 
 
 def main(task_path, rank):

@@ -41,7 +41,8 @@ scheduler and generator equal the saved ones, and it starts at the epoch
 the JAX Trainer's resume of its own 1-epoch run starts at),
 `evaluate_from_checkpoint` on the port's best `.pt` against JAX's on the
 same file, `_pad_eval_batch`'s zero padding against JAX's, the feed
-selection, and the unported fields raising.
+selection, and the JAX-only fields raising. The profiler window and
+`debug_nans` are held in tests/test_torch_trainer_switches.py.
 """
 
 import copy
@@ -446,18 +447,11 @@ def test_feed_selection(run, monkeypatch, tmp_path):
     assert isinstance(t._train_feeds(tr, va, sample, True)[0], DeviceFeed)
 
 
-@pytest.mark.parametrize("field", t_trainer.UNPORTED)
-def test_unported_flags_raise(field):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TrainerConfig(**{field: True})
-
-
-@pytest.mark.parametrize("field", ["use_pallas", "data_parallel",
-                                   "profile_dir"])
+@pytest.mark.parametrize("field", ["use_pallas", "data_parallel"])
 def test_jax_only_fields_are_absent(field):
-    """The JAX package's profiler, data_parallel and use_pallas fields are
-    not part of the port's config (a process group is always the data
-    axis): setting one raises."""
+    """The JAX package's data_parallel and use_pallas fields are not part
+    of the port's config (a process group is always the data axis; the
+    tensor's device picks the kernel path): setting one raises."""
     assert field in {f.name for f in dataclasses.fields(
         j_trainer.TrainerConfig)}
     with pytest.raises(TypeError, match=field):

@@ -1,4 +1,5 @@
-"""Build, load and launch the hand-written Hopper kernels.
+"""Build, load and launch the hand-written Hopper kernels, and register
+the ops that reach them.
 
 Each source under `csrc/` compiles with its own `nvcc` process, all started
 together, and the objects link into one shared library with a plain C
@@ -13,6 +14,14 @@ source it lives in, the TPU kernel it replaces, and a plain-integer count of
 its launches, which rises by one per launch and nowhere else. A kernel with
 more than one variant (K2, K6, K8-K12: tensor cores or CUDA cores, by dtype
 and shape) also counts its launches per variant.
+
+A kernel is reached only through a registered op in the `transmf`
+namespace (`define_op`): the dispatcher runs the op's CUDA implementation
+(checks, variant, `Kernel.launch`) for CUDA tensors and its plain PyTorch
+version for CPU tensors, and FakeTensors (`torch.export`, `opcheck`,
+`torch.compile`) see only its fake implementation, which launches and
+counts nothing. A traced or exported program therefore keeps the op in its
+graph, and its launches count as eager calls do.
 """
 
 from __future__ import annotations
@@ -172,3 +181,43 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> int:
         if t.numel() == 0:
             raise ValueError(f"{name}: empty input")
     return DTYPE_CODES[t0.dtype]
+
+
+# the op namespace every kernel is registered in; `define_op` fills it
+LIBRARY = torch.library.Library("transmf", "DEF")
+OPS: list = []  # every op's default overload, in the order defined
+
+
+def save_inputs(ctx, inputs, output):
+    """`setup_context` of an op whose backward needs its inputs alone."""
+    ctx.save_for_backward(*inputs)
+
+
+def define_op(schema: str, plain, cuda, fake, backward=None,
+              setup_context=None):
+    """Register `transmf::<schema>` and return its default overload: `plain`
+    for CPU tensors, `cuda` (the kernel's launch path) for CUDA tensors,
+    `fake` for FakeTensors, and, for a differentiable op, `backward` and
+    `setup_context` as `torch.library.register_autograd` takes them. No
+    other device has an implementation: a meta tensor, which stands for a
+    device without the kernels, raises as a launch on it would."""
+    name = schema.split("(", 1)[0]
+    LIBRARY.define(schema)
+    LIBRARY.impl(name, plain, "CPU")
+    LIBRARY.impl(name, cuda, "CUDA")
+
+    def fake_or_raise(*args, **kwargs):
+        if any(isinstance(a, torch.Tensor) and a.device.type == "meta"
+               for a in (*args, *kwargs.values())):
+            raise ValueError(f"{name}: expected CUDA tensors, got meta")
+        return fake(*args, **kwargs)
+
+    torch.library.register_fake(f"transmf::{name}", fake_or_raise,
+                                lib=LIBRARY)
+    if backward is not None:
+        torch.library.register_autograd(f"transmf::{name}", backward,
+                                        setup_context=setup_context,
+                                        lib=LIBRARY)
+    op = getattr(torch.ops.transmf, name).default
+    OPS.append(op)
+    return op

@@ -63,7 +63,7 @@ class Options:
     use_class_weights: str = "False"  # weight CE by inverse class frequency
     pretrained: str = ""  # checkpoint to load before training (e.g. pretrainAD)
     remat: str = "False"  # rematerialize encoders (memory for recompute)
-    debug_nans: str = "False"  # not ported: raises
+    debug_nans: str = "False"  # anomaly mode + a finite check every step
     aug_exact: str = "False"  # exact-MONAI host augmentation (data/exact_monai.py)
     folds: str = ""  # comma-separated fold subset, e.g. "0,2" (default: all)
     # — redo a single fold; the KFold split itself stays identical (same

@@ -1,8 +1,12 @@
-"""Hand-written Hopper kernels and their dispatch points.
+"""Hand-written Hopper kernels, reached through registered ops.
 
-Each public function here takes the JAX package's layout. On a CUDA tensor
-it launches its kernel (or raises); on a CPU tensor it runs the plain
-PyTorch version that sits beside it. `attention_core` is the single entry the
+Each public function here takes the JAX package's layout and calls one op
+of the `transmf` namespace (`_build.define_op`; `_build.OPS` lists them). The
+registration picks the implementation by the tensors' device: on CUDA
+tensors the op launches its kernel (or raises), on CPU tensors it runs the
+plain PyTorch version that sits beside it, and FakeTensors (`torch.export`,
+`torch.library.opcheck`) see its fake implementation. Gradients are the
+ops' registered autograd formulas. `attention_core` is the single entry the
 nn layer calls for attention.
 """
 

@@ -30,7 +30,8 @@ shift).
   K8.
 
 On CPU tensors every entry runs the plain version beside it (`F.conv3d`, for
-the input gradient too, and `conv3d_weight`, in float32, rounded once).
+the input gradient too, and `conv3d_weight`, in float32, rounded once). K8
+is the ops `transmf::band_conv` and `band_conv_stats`, K9 `transmf::band_dw`.
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ import torch
 import torch.nn.functional as F
 from torch.nn.grad import conv3d_weight
 
-from .._build import INT, PTR, Kernel, check_cuda, library
+from .._build import (INT, PTR, Kernel, check_cuda, define_op, library,
+                      save_inputs)
 
 BAND_CONV = Kernel(
     name="band_conv", entry="transmf_band_conv",
@@ -160,12 +162,9 @@ def _check(name, x, w):
                          f"(3, 3, 3, {x.shape[-1]}, Cout)")
 
 
-def _band_forward(x, w, stats: bool):
-    """K8 on CUDA tensors, the plain versions on CPU tensors. Returns y or,
-    with `stats`, (y, (2, Cout) float32)."""
-    if x.device.type == "cpu":
-        return (band_conv_stats_reference(x, w) if stats
-                else band_conv_reference(x, w))
+def _band_launch(x, w, stats: bool):
+    """K8 on CUDA tensors, in the variant `variant` names: y or, with
+    `stats`, (y, (2, Cout) float32)."""
     name = "band_conv3d_stats" if stats else "band_conv3d"
     dtype = check_cuda(name, x, w)
     _check(name, x, w)
@@ -187,16 +186,8 @@ def _band_forward(x, w, stats: bool):
     return (out, st) if stats else out
 
 
-def band_dw(x, gy, y=None, a=None, b2=None) -> torch.Tensor:
-    """Weight gradient of the band conv: float32 (3, 3, 3, Cin, Cout) from
-    the input x and the output gradient gy; with the conv output y and the
-    float32 (Cout,) cotangents a (of the sums) and b2 (twice that of the
-    sums of squares), from yhat = gy + round(a + y * b2). Kernel K9 on CUDA
-    tensors (the variant `dw_variant` names); the plain version on CPU."""
-    if (y is None) != (a is None) or (a is None) != (b2 is None):
-        raise ValueError("band_dw: y, a and b2 go together")
-    if x.device.type == "cpu":
-        return band_dw_reference(x, gy, y, a, b2)
+def _band_dw_launch(x, gy, y=None, a=None, b2=None) -> torch.Tensor:
+    """K9 on CUDA tensors, in the variant `dw_variant` names."""
     name = "band_dw"
     gy = gy.to(x.dtype).contiguous()
     with_ab = a is not None
@@ -229,61 +220,85 @@ def band_dw(x, gy, y=None, a=None, b2=None) -> torch.Tensor:
     return dw
 
 
-class _BandConv(torch.autograd.Function):
-    """K8 forward; backward K8 (dx) and K9 (dw), the JAX package's
-    `_bc_fwd` / `_bc_bwd`."""
-
-    @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        return _band_forward(x, w, False)
-
-    @staticmethod
-    def backward(ctx, gy):
-        x, w = ctx.saved_tensors
-        gyd = gy.to(x.dtype).contiguous()
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = _band_forward(gyd, flip_weight(w), False)
-        if ctx.needs_input_grad[1]:
-            dw = band_dw(x, gyd).to(w.dtype)
-        return dx, dw
+def _y_fake(x, w):
+    return x.new_empty(*x.shape[:4], w.shape[4])
 
 
-class _BandConvStats(torch.autograd.Function):
-    """K8 with statistics forward; backward K8 (dx) and K9 with the sums'
-    cotangents (dw), the JAX package's `_bcs_fwd` / `_bcs_bwd`."""
+def _band_backward(ctx, gy):
+    """K8 on flipped weights (dx) and K9 (dw), the JAX package's
+    `_bc_bwd`."""
+    x, w = ctx.saved_tensors
+    gyd = gy.to(x.dtype).contiguous()
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+        dx = _band_forward(gyd, flip_weight(w), False)
+    if ctx.needs_input_grad[1]:
+        dw = band_dw(x, gyd).to(w.dtype)
+    return dx, dw
 
-    @staticmethod
-    def forward(ctx, x, w):
-        y, st = _band_forward(x, w, True)
-        ctx.save_for_backward(x, w, y)
-        return y, st
 
-    @staticmethod
-    def backward(ctx, gy, gst):
-        x, w, y = ctx.saved_tensors
-        a = gst[0].float().contiguous()
-        b2 = (2.0 * gst[1]).float().contiguous()
-        gyd = gy.to(x.dtype).contiguous()
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            # every operation rounded to the storage type, a and b2 first
-            yhat = gyd + a.to(y.dtype) + y * b2.to(y.dtype)
-            dx = _band_forward(yhat, flip_weight(w), False)
-        if ctx.needs_input_grad[1]:
-            dw = band_dw(x, gyd, y, a, b2).to(w.dtype)
-        return dx, dw
+def _band_stats_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs, output[0])
+
+
+def _band_stats_backward(ctx, gy, gst):
+    """K8 on flipped weights (dx) and K9 with the sums' cotangents (dw),
+    the JAX package's `_bcs_bwd`."""
+    x, w, y = ctx.saved_tensors
+    a = gst[0].float().contiguous()
+    b2 = (2.0 * gst[1]).float().contiguous()
+    gyd = gy.to(x.dtype).contiguous()
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+        # every operation rounded to the storage type, a and b2 first
+        yhat = gyd + a.to(y.dtype) + y * b2.to(y.dtype)
+        dx = _band_forward(yhat, flip_weight(w), False)
+    if ctx.needs_input_grad[1]:
+        dw = band_dw(x, gyd, y, a, b2).to(w.dtype)
+    return dx, dw
+
+
+band_conv_op = define_op(
+    "band_conv(Tensor x, Tensor w) -> Tensor", band_conv_reference,
+    functools.partial(_band_launch, stats=False), _y_fake, _band_backward,
+    save_inputs)
+band_conv_stats_op = define_op(
+    "band_conv_stats(Tensor x, Tensor w) -> (Tensor, Tensor)",
+    band_conv_stats_reference, functools.partial(_band_launch, stats=True),
+    lambda x, w: (_y_fake(x, w),
+                  x.new_empty(2, w.shape[4], dtype=torch.float32)),
+    _band_stats_backward, _band_stats_setup)
+band_dw_op = define_op(
+    "band_dw(Tensor x, Tensor gy, Tensor? y=None, Tensor? a=None, "
+    "Tensor? b2=None) -> Tensor", band_dw_reference, _band_dw_launch,
+    lambda x, gy, *_: x.new_empty(3, 3, 3, x.shape[4], gy.shape[4],
+                                  dtype=torch.float32))
+
+
+def _band_forward(x, w, stats: bool):
+    """The band conv's op: y or, with `stats`, (y, (2, Cout) float32)."""
+    return band_conv_stats_op(x, w) if stats else band_conv_op(x, w)
+
+
+def band_dw(x, gy, y=None, a=None, b2=None) -> torch.Tensor:
+    """Weight gradient of the band conv: float32 (3, 3, 3, Cin, Cout) from
+    the input x and the output gradient gy; with the conv output y and the
+    float32 (Cout,) cotangents a (of the sums) and b2 (twice that of the
+    sums of squares), from yhat = gy + round(a + y * b2). Kernel K9 on CUDA
+    tensors (the variant `dw_variant` names); the plain version on CPU."""
+    if (y is None) != (a is None) or (a is None) != (b2 is None):
+        raise ValueError("band_dw: y, a and b2 go together")
+    return band_dw_op(x, gy, y, a, b2)
 
 
 def band_conv3d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """3x3x3 SAME stride-1 conv, (B, X, Y, Z, Cin) x (3, 3, 3, Cin, Cout) ->
     (B, X, Y, Z, Cout), linear. Kernel K8 on CUDA tensors, backward K8 and
     K9; the plain versions on CPU tensors."""
-    return _BandConv.apply(x, w)
+    return _band_forward(x, w, False)
 
 
 def band_conv3d_stats(x: torch.Tensor, w: torch.Tensor):
     """`band_conv3d` plus float32 (2, Cout) [sum, sum of squares] of the
     float32 accumulator over B, X, Y, Z."""
-    return _BandConvStats.apply(x, w)
+    return _band_forward(x, w, True)

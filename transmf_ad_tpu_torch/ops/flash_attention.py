@@ -19,14 +19,17 @@ tensor cores, csrc/flash_bwd_mma.cuh) for bfloat16 with a head dim of 16, 32
 or 64, "rows" (the CUDA cores) for float32 and other head dims.
 `FLASH_FWD.by_variant`, `FLASH_DQ.by_variant` and `FLASH_DKV.by_variant`
 count them. The TPU kernels' `block_q`/`block_k` arguments tile VMEM and
-have no counterpart here.
+have no counterpart here. The ops: `transmf::attention` (K2),
+`flash_fwd` (K10, differentiable in both outputs: a gradient of the
+logsumexp joins the softmax backward's row term), `flash_dq` (K11) and
+`flash_dkv` (K12).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .._build import FLOAT, INT, PTR, Kernel, check_cuda
+from .._build import FLOAT, INT, PTR, Kernel, check_cuda, define_op
 
 FLASH_MIN_KEYS = 2048  # above this `attention_core` takes flash_attention
 
@@ -110,9 +113,8 @@ def _check_qkv(name: str, q, k, v, *same_as_q):
     return (b * h, n, k.shape[2], d), dtype
 
 
-def _attention(q, k, v, scale: float) -> torch.Tensor:
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, scale)
+def _attention_launch(q, k, v, scale: float) -> torch.Tensor:
+    """K2 on CUDA tensors, in the variant `attention_variant` names."""
     sizes, dtype = _check_qkv("fused_attention", q, k, v)
     which = attention_variant(q.dtype, q.shape[3])
     out = torch.empty_like(q)
@@ -122,24 +124,32 @@ def _attention(q, k, v, scale: float) -> torch.Tensor:
     return out
 
 
-class _Attention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        ctx.save_for_backward(q, k, v)
-        ctx.scale = scale
-        return _attention(q, k, v, scale)
+def _attention_setup(ctx, inputs, output):
+    q, k, v, ctx.scale = inputs
+    ctx.save_for_backward(q, k, v)
 
-    @staticmethod
-    def backward(ctx, g):
-        return (*attention_bwd_reference(*ctx.saved_tensors, g.contiguous(),
-                                         ctx.scale), None)
+
+def _attention_backward(ctx, g):
+    return (*attention_bwd_reference(*ctx.saved_tensors, g.contiguous(),
+                                     ctx.scale), None)
+
+
+attention_op = define_op(
+    "attention(Tensor q, Tensor k, Tensor v, float scale) -> Tensor",
+    attention_reference, _attention_launch,
+    lambda q, k, v, scale: torch.empty_like(q), _attention_backward,
+    _attention_setup)
+
+
+def _attention(q, k, v, scale: float) -> torch.Tensor:
+    return attention_op(q, k, v, scale)
 
 
 def fused_attention(q, k, v, scale: float) -> torch.Tensor:
     """q: (B, H, N, D), k/v: (B, H, M, D) -> (B, H, N, D). Kernel K2 on CUDA
     tensors (D <= 128, any M; the variant `attention_variant` names); the
     plain version on CPU tensors. Differentiable, with a plain backward."""
-    return _Attention.apply(q, k, v, scale)
+    return _attention(q, k, v, scale)
 
 
 def flash_fwd_reference(q, k, v, scale: float):
@@ -192,12 +202,8 @@ def flash_bwd_reference(q, k, v, o, lse, g, scale: float):
     return (dq, *_dkv(p, ds, q, k, v, g, scale))
 
 
-def flash_fwd(q, k, v, scale: float):
-    """(out, lse) of `flash_fwd_reference`: kernel K10 on CUDA tensors
-    (D <= 128, any N and M; the variant `attention_variant` names), the
-    plain version on CPU tensors."""
-    if q.device.type == "cpu":
-        return flash_fwd_reference(q, k, v, scale)
+def _flash_fwd_launch(q, k, v, scale: float):
+    """K10 on CUDA tensors, in the variant `attention_variant` names."""
     sizes, dtype = _check_qkv("flash_attention", q, k, v)
     which = attention_variant(q.dtype, q.shape[3])
     out = torch.empty_like(q)
@@ -220,12 +226,8 @@ def _check_bwd(name: str, q, k, v, g, lse, delta):
     return tuple(t.data_ptr() for t in (q, k, v, g, lse, delta)), sizes, dtype
 
 
-def flash_dq(q, k, v, g, lse, delta, scale: float):
-    """dq of `flash_dq_reference`: kernel K11 on CUDA tensors (the variant
-    `flash_bwd_variant` names), the plain version on CPU tensors. lse,
-    delta: float32 (B, H, N)."""
-    if q.device.type == "cpu":
-        return flash_dq_reference(q, k, v, g, lse, delta, scale)
+def _flash_dq_launch(q, k, v, g, lse, delta, scale: float):
+    """K11 on CUDA tensors, in the variant `flash_bwd_variant` names."""
     ins, sizes, dtype = _check_bwd("flash_dq", q, k, v, g, lse, delta)
     which = flash_bwd_variant(q.dtype, q.shape[3])
     dq = torch.empty_like(q)
@@ -234,12 +236,8 @@ def flash_dq(q, k, v, g, lse, delta, scale: float):
     return dq
 
 
-def flash_dkv(q, k, v, g, lse, delta, scale: float):
-    """(dk, dv) of `flash_dkv_reference`: kernel K12 on CUDA tensors (the
-    variant `flash_bwd_variant` names), the plain version on CPU tensors.
-    lse, delta: float32 (B, H, N)."""
-    if q.device.type == "cpu":
-        return flash_dkv_reference(q, k, v, g, lse, delta, scale)
+def _flash_dkv_launch(q, k, v, g, lse, delta, scale: float):
+    """K12 on CUDA tensors, in the variant `flash_bwd_variant` names."""
     ins, sizes, dtype = _check_bwd("flash_dkv", q, k, v, g, lse, delta)
     which = flash_bwd_variant(q.dtype, q.shape[3])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -249,32 +247,74 @@ def flash_dkv(q, k, v, g, lse, delta, scale: float):
     return dk, dv
 
 
+def _flash_fwd_setup(ctx, inputs, output):
+    q, k, v, ctx.scale = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.set_materialize_grads(False)  # an unused output's gradient is None
+
+
+def _flash_fwd_backward(ctx, g, g_lse):
+    """K11 and K12 from the saved output and logsumexp. A gradient of the
+    logsumexp enters the row term: d lse / d s = p, so ds = p * (dp -
+    (delta - g_lse))."""
+    q, k, v, o, lse = ctx.saved_tensors
+    g = torch.zeros_like(o) if g is None else g.contiguous()
+    delta = flash_delta(o, g)
+    if g_lse is not None:
+        delta = delta - g_lse
+    return (flash_dq(q, k, v, g, lse, delta, ctx.scale),
+            *flash_dkv(q, k, v, g, lse, delta, ctx.scale), None)
+
+
+_QKV = "Tensor q, Tensor k, Tensor v"
+_ROWS = "Tensor g, Tensor lse, Tensor delta, float scale"
+flash_fwd_op = define_op(
+    f"flash_fwd({_QKV}, float scale) -> (Tensor, Tensor)",
+    flash_fwd_reference, _flash_fwd_launch,
+    lambda q, k, v, scale: (torch.empty_like(q),
+                            q.new_empty(q.shape[:3], dtype=torch.float32)),
+    _flash_fwd_backward, _flash_fwd_setup)
+flash_dq_op = define_op(
+    f"flash_dq({_QKV}, {_ROWS}) -> Tensor", flash_dq_reference,
+    _flash_dq_launch, lambda q, *_: torch.empty_like(q))
+flash_dkv_op = define_op(
+    f"flash_dkv({_QKV}, {_ROWS}) -> (Tensor, Tensor)", flash_dkv_reference,
+    _flash_dkv_launch,
+    lambda q, k, v, *_: (torch.empty_like(k), torch.empty_like(v)))
+
+
+def flash_fwd(q, k, v, scale: float):
+    """(out, lse) of `flash_fwd_reference`: kernel K10 on CUDA tensors
+    (D <= 128, any N and M; the variant `attention_variant` names), the
+    plain version on CPU tensors. Differentiable in both outputs, with K11
+    and K12 as its backward."""
+    return flash_fwd_op(q, k, v, scale)
+
+
+def flash_dq(q, k, v, g, lse, delta, scale: float):
+    """dq of `flash_dq_reference`: kernel K11 on CUDA tensors (the variant
+    `flash_bwd_variant` names), the plain version on CPU tensors. lse,
+    delta: float32 (B, H, N)."""
+    return flash_dq_op(q, k, v, g, lse, delta, scale)
+
+
+def flash_dkv(q, k, v, g, lse, delta, scale: float):
+    """(dk, dv) of `flash_dkv_reference`: kernel K12 on CUDA tensors (the
+    variant `flash_bwd_variant` names), the plain version on CPU tensors.
+    lse, delta: float32 (B, H, N)."""
+    return flash_dkv_op(q, k, v, g, lse, delta, scale)
+
+
 def flash_bwd(q, k, v, o, lse, g, scale: float):
     """(dq, dk, dv) of `flash_bwd_reference`: kernels K11 and K12 on CUDA
-    tensors, the plain version on CPU tensors."""
-    if q.device.type == "cpu":
-        return flash_bwd_reference(q, k, v, o, lse, g, scale)
+    tensors, the plain versions on CPU tensors."""
     delta = flash_delta(o, g)
     return (flash_dq(q, k, v, g, lse, delta, scale),
             *flash_dkv(q, k, v, g, lse, delta, scale))
-
-
-class _Flash(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        out, lse = flash_fwd(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale = scale
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        return (*flash_bwd(*ctx.saved_tensors, g.contiguous(), ctx.scale),
-                None)
 
 
 def flash_attention(q, k, v, scale: float) -> torch.Tensor:
     """q: (B, H, N, D), k/v: (B, H, M, D) -> (B, H, N, D). Kernel K10 on CUDA
     tensors, with K11 and K12 as its backward; on CPU tensors the plain
     versions, whose backward also goes through the saved logsumexp."""
-    return _Flash.apply(q, k, v, scale)
+    return flash_fwd(q, k, v, scale)[0]

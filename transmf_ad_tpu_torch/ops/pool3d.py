@@ -23,14 +23,16 @@ kernel) wherever a channel row is a whole number of 16-byte pieces, which
 holds for the models' widths in bfloat16 and float32, and "direct" (one
 thread per element or lane, 2- or 4-byte accesses) otherwise. The two give
 the same bits for K4 and for K7's dy; K7's float32 sums differ only in
-their order.
+their order. K4 is the op `transmf::affine_act_pool`, with its slope, mode,
+lanes and `round_gi` (the backward's tie rule) as scalar arguments; K7 is
+`transmf::affine_act_pool_bwd`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .._build import FLOAT, INT, PTR, Kernel, check_cuda
+from .._build import FLOAT, INT, PTR, Kernel, check_cuda, define_op
 
 AFFINE_ACT_POOL = Kernel(
     name="affine_act_pool", entry="transmf_affine_act_pool",
@@ -173,10 +175,11 @@ def _check_volume(name, y):
                          "(B, X, Y, Z, C) with X, Y, Z >= 2")
 
 
-def _affine_act_pool(name, y, scale, shift, slope, mode, lanes):
-    """K4 on CUDA tensors, in the variant `variant` names."""
-    if y.device.type == "cpu":
-        return affine_act_pool_reference(y, scale, shift, slope, mode)
+def _affine_act_pool_launch(y, scale, shift, slope: float, mode: str,
+                            lanes: bool, round_gi: bool):
+    """K4 on CUDA tensors, in the variant `variant` names (`round_gi` is
+    the backward's)."""
+    name = "affine_act_pool"
     dtype = check_cuda(name, y)
     _check_volume(name, y)
     b, X, Y, Z, C = y.shape
@@ -195,15 +198,10 @@ def _affine_act_pool(name, y, scale, shift, slope, mode, lanes):
     return out
 
 
-def affine_act_pool_bwd(y, scale, shift, p, g, slope: float, mode: str,
-                        lanes: bool, round_gi: bool):
-    """(dy, (2, n) float32 [d(scale), d(shift)]) for the forward output p
-    and its gradient g. Kernel K7 on CUDA tensors, in the variant
-    `variant` names; the plain version on CPU tensors."""
+def _affine_act_pool_bwd_launch(y, scale, shift, p, g, slope: float,
+                                mode: str, lanes: bool, round_gi: bool):
+    """K7 on CUDA tensors, in the variant `variant` names."""
     name = "affine_act_pool_bwd"
-    if y.device.type == "cpu":
-        return affine_act_pool_bwd_reference(y, scale, shift, p, g, slope,
-                                             mode, round_gi)
     g = g.to(y.dtype).contiguous()
     dtype = check_cuda(name, y, p, g)
     _check_volume(name, y)
@@ -233,41 +231,70 @@ def affine_act_pool_bwd(y, scale, shift, p, g, slope: float, mode: str,
     return dy, dsb
 
 
-class _AffineActPool(torch.autograd.Function):
-    """K4 forward, K7 backward; saves (y, scale, shift, p) as the JAX
-    custom_vjp does."""
+def _pool_fake(y, scale, shift, slope, mode, lanes, round_gi):
+    b, X, Y, Z, C = y.shape
+    return y.new_empty(b, X // 2, Y // 2, Z // 2, C)
 
-    @staticmethod
-    def forward(ctx, y, scale, shift, name, slope, mode, lanes, round_gi):
-        p = _affine_act_pool(name, y, scale, shift, slope, mode, lanes)
-        ctx.save_for_backward(y, scale, shift, p)
-        ctx.args = (slope, mode, lanes, round_gi)
-        return p
 
-    @staticmethod
-    def backward(ctx, g):
-        y, scale, shift, p = ctx.saved_tensors
-        dy, dsb = affine_act_pool_bwd(y, scale, shift, p, g.contiguous(),
-                                      *ctx.args)
-        return dy, dsb[0], dsb[1], None, None, None, None, None
+def _pool_setup(ctx, inputs, output):
+    y, scale, shift, *ctx.args = inputs  # slope, mode, lanes, round_gi
+    ctx.save_for_backward(y, scale, shift, output)
+
+
+def _pool_backward(ctx, g):
+    """K7 (the JAX custom_vjp's backward on the saved y, scale, shift,
+    p)."""
+    y, scale, shift, p = ctx.saved_tensors
+    dy, dsb = affine_act_pool_bwd(y, scale, shift, p, g.contiguous(),
+                                  *ctx.args)
+    return dy, dsb[0], dsb[1], None, None, None, None
+
+
+_POOL_ARGS = "float slope, str mode, bool lanes, bool round_gi"
+affine_act_pool_op = define_op(
+    f"affine_act_pool(Tensor y, Tensor scale, Tensor shift, {_POOL_ARGS}) "
+    "-> Tensor",
+    lambda y, scale, shift, slope, mode, lanes, round_gi:
+        affine_act_pool_reference(y, scale, shift, slope, mode),
+    _affine_act_pool_launch, _pool_fake, _pool_backward, _pool_setup)
+affine_act_pool_bwd_op = define_op(
+    "affine_act_pool_bwd(Tensor y, Tensor scale, Tensor shift, Tensor p, "
+    f"Tensor g, {_POOL_ARGS}) -> (Tensor, Tensor)",
+    lambda y, scale, shift, p, g, slope, mode, lanes, round_gi:
+        affine_act_pool_bwd_reference(y, scale, shift, p, g, slope, mode,
+                                      round_gi),
+    _affine_act_pool_bwd_launch,
+    lambda y, scale, *_: (torch.empty_like(y),
+                          y.new_empty(2, scale.numel(), dtype=torch.float32)))
+
+
+def _affine_act_pool(name, y, scale, shift, slope, mode, lanes):
+    """K4 through its op, with K7's tie rule of the `_bc_bwd_kernel`
+    (g/count in float32); `name` is the calling entry's."""
+    return affine_act_pool_op(y, scale, shift, slope, mode, lanes, False)
+
+
+def affine_act_pool_bwd(y, scale, shift, p, g, slope: float, mode: str,
+                        lanes: bool, round_gi: bool):
+    """(dy, (2, n) float32 [d(scale), d(shift)]) for the forward output p
+    and its gradient g. Kernel K7 on CUDA tensors, in the variant
+    `variant` names; the plain version on CPU tensors."""
+    return affine_act_pool_bwd_op(y, scale, shift, p, g, slope, mode, lanes,
+                                  round_gi)
 
 
 def max_pool3d_2x2_affine_act(y, s_lanes, b_lanes, slope: float = 0.01):
     """maxpool2(leaky(y * s + b)) with (Z*C,) lane vectors (the stem-fed
     stage end). Kernel K4 on CUDA tensors, backward K7 with g/count
     rounded to y's dtype (_mpa_bwd_kernel); the plain versions on CPU."""
-    return _AffineActPool.apply(y, s_lanes, b_lanes,
-                                "max_pool3d_2x2_affine_act", slope, "max",
-                                True, True)
+    return affine_act_pool_op(y, s_lanes, b_lanes, slope, "max", True, True)
 
 
 def max_pool3d_2x2_affine_act_bc(y, scale, shift, slope: float = 0.01):
     """maxpool2(leaky(y * s + b)) with per-channel (C,) vectors (the
     conv-fed stage ends); backward K7 with g/count in float32
     (_bc_bwd_kernel)."""
-    return _AffineActPool.apply(y, scale, shift,
-                                "max_pool3d_2x2_affine_act_bc", slope, "max",
-                                False, False)
+    return affine_act_pool_op(y, scale, shift, slope, "max", False, False)
 
 
 def avg_pool3d_2x2_affine_act(y, scale, shift, slope: float = 0.01):
@@ -275,8 +302,7 @@ def avg_pool3d_2x2_affine_act(y, scale, shift, slope: float = 0.01):
     stage-4 end, which the JAX package runs as bn_affine_reference followed
     by avg_pool3d_2x2; backward K7 in mean mode (_avg_bwd_kernel followed
     by the affine's backward)."""
-    return _AffineActPool.apply(y, scale, shift, "avg_pool3d_2x2_affine_act",
-                                slope, "avg", False, False)
+    return affine_act_pool_op(y, scale, shift, slope, "avg", False, False)
 
 
 def _identity(x):
@@ -289,11 +315,9 @@ def max_pool3d_2x2(x):
     """(B, X, Y, Z, C) -> floor-halved, torch MaxPool3d(2, 2) forward; the
     backward splits the gradient equally among tied maxima
     (_pool_bwd_kernel)."""
-    return _AffineActPool.apply(x, *_identity(x), "max_pool3d_2x2", 1.0,
-                                "max", False, True)
+    return affine_act_pool_op(x, *_identity(x), 1.0, "max", False, True)
 
 
 def avg_pool3d_2x2(x):
     """(B, X, Y, Z, C) -> floor-halved, torch AvgPool3d(2, 2)."""
-    return _AffineActPool.apply(x, *_identity(x), "avg_pool3d_2x2", 1.0,
-                                "avg", False, False)
+    return affine_act_pool_op(x, *_identity(x), 1.0, "avg", False, False)

@@ -2,9 +2,9 @@
 
 Port of transmf_ad_tpu/ops/pooling.py: the fusion head concatenates
 [mean(mri), mean(pet), max(mri), max(pet)] over the token axis in one pass
-(kernel K1, csrc/token_pool.cu). The backward is plain PyTorch, as the JAX
-package's is XLA: g/N for the means, and the max gradient split equally over
-tied argmax tokens.
+(kernel K1, csrc/token_pool.cu), registered as the op `transmf::token_pool`.
+The backward is plain PyTorch, as the JAX package's is XLA: g/N for the
+means, and the max gradient split equally over tied argmax tokens.
 
 K1 has two variants, chosen by `variant(dtype, shape)` alone: "cluster"
 (a thread-block cluster of 8 blocks per batch row, 16-byte loads;
@@ -18,7 +18,8 @@ from __future__ import annotations
 
 import torch
 
-from .._build import INT, PTR, Kernel, check_cuda
+from .._build import (INT, PTR, Kernel, check_cuda, define_op,
+                      save_inputs)
 
 TOKEN_POOL = Kernel(
     name="token_pool", entry="transmf_token_pool",
@@ -71,9 +72,8 @@ def pool_bwd_reference(mri, pet, g):
             back(pet, g[:, d:2 * d], g[:, 3 * d:]))
 
 
-def _token_pool(mri: torch.Tensor, pet: torch.Tensor) -> torch.Tensor:
-    if mri.device.type == "cpu":
-        return pool_reference(mri, pet)
+def _token_pool_launch(mri: torch.Tensor, pet: torch.Tensor) -> torch.Tensor:
+    """K1 on CUDA tensors, in the variant `variant` names."""
     dtype = check_cuda("fused_token_pool", mri, pet)
     if mri.dim() != 3 or pet.shape != mri.shape:
         raise ValueError(f"fused_token_pool: shapes {tuple(mri.shape)} and "
@@ -93,18 +93,21 @@ def _token_pool(mri: torch.Tensor, pet: torch.Tensor) -> torch.Tensor:
     return out
 
 
-class _TokenPool(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, mri, pet):
-        ctx.save_for_backward(mri, pet)
-        return _token_pool(mri, pet)
+def _token_pool_fake(mri, pet):
+    return mri.new_empty(mri.shape[0], 4 * mri.shape[2])
 
-    @staticmethod
-    def backward(ctx, g):
-        return pool_bwd_reference(*ctx.saved_tensors, g.contiguous())
+
+def _token_pool_backward(ctx, g):
+    return pool_bwd_reference(*ctx.saved_tensors, g.contiguous())
+
+
+token_pool_op = define_op(
+    "token_pool(Tensor mri, Tensor pet) -> Tensor", pool_reference,
+    _token_pool_launch, _token_pool_fake, _token_pool_backward,
+    save_inputs)
 
 
 def fused_token_pool(mri: torch.Tensor, pet: torch.Tensor) -> torch.Tensor:
     """(B, N, D) x 2 -> (B, 4D). Kernel K1 on CUDA tensors; the plain
     version on CPU tensors. Differentiable, with a plain backward."""
-    return _TokenPool.apply(mri, pet)
+    return token_pool_op(mri, pet)

@@ -16,7 +16,8 @@ tile every volume alike, so the same three kernels take 182x218x182 inputs.
 
 Each of the three has a tensor-core variant "mma" (bfloat16 at the models'
 stem widths) and a CUDA-core variant "direct" (float32 and other channel
-counts): `conv_variant` names K3's and K5's, `dw_variant` K6's.
+counts): `conv_variant` names K3's and K5's, `dw_variant` K6's. Each is the
+op `transmf::stem_conv`, `stem_conv_stats` or `stem_dw`.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch.nn.grad import conv3d_input, conv3d_weight
 
-from .._build import INT, PTR, Kernel, check_cuda, library
+from .._build import (INT, PTR, Kernel, check_cuda, define_op, library,
+                      save_inputs)
 
 STEM_CONV = Kernel(
     name="stem_conv", entry="transmf_stem_conv",
@@ -172,26 +174,8 @@ def _stem_launch(name, x, w, stats: bool):
     return out, st
 
 
-def _stem_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return _conv_reference(x, w)
-    return _stem_launch("stem_conv", x, w, stats=False)
-
-
-def _stem_stats_forward(x: torch.Tensor, w: torch.Tensor):
-    if x.device.type == "cpu":
-        return _stem_stats_reference(x, w)
-    return _stem_launch("stem_conv_stats", x, w, stats=True)
-
-
-def stem_dw(x, y, gy, a, b2) -> torch.Tensor:
-    """Stem weight gradient: float32 (3, 3, 3, C) from the input x
-    (B, X, Y, Z), the output y and its gradient gy (B, X, Y, Z, C), and the
-    float32 (C,) cotangents a (of the sums) and b2 (twice that of the sums
-    of squares). Kernel K6 on CUDA tensors, in the variant `dw_variant`
-    names; the plain version on CPU."""
-    if x.device.type == "cpu":
-        return stem_dw_reference(x, y, gy, a, b2)
+def _stem_dw_launch(x, y, gy, a, b2) -> torch.Tensor:
+    """K6 on CUDA tensors, in the variant `dw_variant` names."""
     name = "stem_dw"
     gy = gy.to(y.dtype).contiguous()
     dtype = check_cuda(name, x, y, gy)
@@ -217,6 +201,22 @@ def stem_dw(x, y, gy, a, b2) -> torch.Tensor:
     return dw
 
 
+stem_dw_op = define_op(
+    "stem_dw(Tensor x, Tensor y, Tensor gy, Tensor a, Tensor b2) -> Tensor",
+    stem_dw_reference, _stem_dw_launch,
+    lambda x, y, gy, a, b2: x.new_empty(3, 3, 3, y.shape[-1],
+                                        dtype=torch.float32))
+
+
+def stem_dw(x, y, gy, a, b2) -> torch.Tensor:
+    """Stem weight gradient: float32 (3, 3, 3, C) from the input x
+    (B, X, Y, Z), the output y and its gradient gy (B, X, Y, Z, C), and the
+    float32 (C,) cotangents a (of the sums) and b2 (twice that of the sums
+    of squares). Kernel K6 on CUDA tensors, in the variant `dw_variant`
+    names; the plain version on CPU."""
+    return stem_dw_op(x, y, gy, a, b2)
+
+
 def _dx(x, w, g):
     """Input gradient of the stem conv (the transpose conv), plain."""
     gt = g.to(x.dtype).permute(0, 4, 1, 2, 3)
@@ -224,45 +224,51 @@ def _dx(x, w, g):
                         padding=1)[:, 0]
 
 
-class _StemConv(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        return _stem_forward(x, w)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        dx = _dx(x, w, g) if ctx.needs_input_grad[0] else None
-        dw = None
-        if ctx.needs_input_grad[1]:
-            gt = g.to(w.dtype).permute(0, 4, 1, 2, 3)
-            dw = conv3d_weight(x.to(w.dtype).unsqueeze(1), (w.shape[3], 1, 3,
-                                                            3, 3), gt,
-                               padding=1)[:, 0].permute(1, 2, 3, 0)
-        return dx, dw
+def _y_fake(x, w):
+    return x.new_empty(*x.shape, w.shape[3])
 
 
-class _StemConvStats(torch.autograd.Function):
-    """K5 forward, K6 backward (the JAX package's `_ss_fwd` / `_ss_bwd`)."""
+def _stem_backward(ctx, g):
+    """Plain, as the JAX package's is the transpose of an XLA conv."""
+    x, w = ctx.saved_tensors
+    dx = _dx(x, w, g) if ctx.needs_input_grad[0] else None
+    dw = None
+    if ctx.needs_input_grad[1]:
+        gt = g.to(w.dtype).permute(0, 4, 1, 2, 3)
+        dw = conv3d_weight(x.to(w.dtype).unsqueeze(1), (w.shape[3], 1, 3,
+                                                        3, 3), gt,
+                           padding=1)[:, 0].permute(1, 2, 3, 0)
+    return dx, dw
 
-    @staticmethod
-    def forward(ctx, x, w):
-        y, st = _stem_stats_forward(x, w)
-        ctx.save_for_backward(x, w, y)
-        return y, st
 
-    @staticmethod
-    def backward(ctx, gy, gst):
-        x, w, y = ctx.saved_tensors
-        a = gst[0].float().contiguous()
-        b2 = (2.0 * gst[1]).float().contiguous()
-        dw = stem_dw(x, y, gy.contiguous(), a, b2).to(w.dtype)
-        dx = None
-        if ctx.needs_input_grad[0]:  # dead in training: the input volume
-            yhat = gy.to(y.dtype) + a.to(y.dtype) + y * b2.to(y.dtype)
-            dx = _dx(x, w, yhat)
-        return dx, dw
+def _stem_stats_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs, output[0])
+
+
+def _stem_stats_backward(ctx, gy, gst):
+    """K6 (the JAX package's `_ss_bwd`)."""
+    x, w, y = ctx.saved_tensors
+    a = gst[0].float().contiguous()
+    b2 = (2.0 * gst[1]).float().contiguous()
+    dw = stem_dw(x, y, gy.contiguous(), a, b2).to(w.dtype)
+    dx = None
+    if ctx.needs_input_grad[0]:  # dead in training: the input volume
+        yhat = gy.to(y.dtype) + a.to(y.dtype) + y * b2.to(y.dtype)
+        dx = _dx(x, w, yhat)
+    return dx, dw
+
+
+stem_conv_op = define_op(
+    "stem_conv(Tensor x, Tensor w) -> Tensor", _conv_reference,
+    functools.partial(_stem_launch, "stem_conv", stats=False), _y_fake,
+    _stem_backward, save_inputs)
+stem_conv_stats_op = define_op(
+    "stem_conv_stats(Tensor x, Tensor w) -> (Tensor, Tensor)",
+    _stem_stats_reference,
+    functools.partial(_stem_launch, "stem_conv_stats", stats=True),
+    lambda x, w: (_y_fake(x, w),
+                  x.new_empty(2, w.shape[3], dtype=torch.float32)),
+    _stem_stats_backward, _stem_stats_setup)
 
 
 def stem_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -271,7 +277,7 @@ def stem_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     the stage-end pool). Kernel K3 on CUDA tensors, in the variant
     `conv_variant` names; the plain version on CPU tensors. Differentiable,
     with a plain backward."""
-    return _StemConv.apply(x, w)
+    return stem_conv_op(x, w)
 
 
 def stem_conv_stats(x: torch.Tensor, w: torch.Tensor):
@@ -281,4 +287,4 @@ def stem_conv_stats(x: torch.Tensor, w: torch.Tensor):
     (`st.reshape(2, Z, C).sum(1)`). Kernel K5 on CUDA tensors (in the
     variant `conv_variant` names), backward K6; the plain versions on CPU
     tensors."""
-    return _StemConvStats.apply(x, w)
+    return stem_conv_stats_op(x, w)

@@ -28,15 +28,26 @@ the same on every rank. Only rank 0 logs and writes checkpoints (the
 others get a `NullLogger`), with a barrier after each write; `latest.pt`
 holds every rank's generator, and a resume gives each rank its own.
 
+Two switches of the JAX config (`TrainerConfig`): `profile_dir` opens a
+`torch.profiler` window (CPU and CUDA activities) at global iteration
+`profile_steps[0]` and closes it at `profile_steps[1]`, after a device
+sync, writing a Chrome trace into `profile_dir` (rank 0 only); a window
+still open when `fit` returns is closed and written then. `debug_nans`
+runs `fit` under `torch.autograd.detect_anomaly(check_nan=True)` and checks
+the loss and every gradient after each step: the first NaN or inf raises
+`FloatingPointError` naming the iteration. Only this switch syncs each
+step; without it the steps stay queued.
+
 Not ported: the tensor-parallel 'model' axis (`model_parallel` > 1 raises;
-ROADMAP.md Queue 1 item 10), the profiler trace and the NaN debugging
-switch (`debug_nans`, which the CLI's flags reach, raises on a true value);
-the JAX config's `use_pallas`, `data_parallel` and profiler fields are
-not fields here: a process group is always the data axis.
+ROADMAP.md Queue 1 item 10.4); the JAX config's `use_pallas` and
+`data_parallel` fields are not fields here: a process group is always the
+data axis.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Any, Optional, Sequence, Tuple
@@ -59,11 +70,6 @@ from .engine import Engine, Events
 from .metrics import MetricState, confusion_metrics, roc_auc
 from .optim import MILESTONES, multistep_schedule
 from .steps import create_state, make_eval_step, make_train_step
-
-# flags of the JAX package's TrainerConfig that the CLI reaches and this
-# port does not carry out; a config that sets one raises
-UNPORTED = ("debug_nans",)
-
 
 @dataclass
 class TrainerConfig:
@@ -106,7 +112,12 @@ class TrainerConfig:
     # recompute the encoder blocks whose intermediates are worth it in the
     # backward (nn/blocks.py::SNet; activation memory for conv recompute)
     remat: bool = False
-    debug_nans: bool = False  # not ported
+    # a torch.profiler window over the global iterations [start, stop):
+    # a Chrome trace written into profile_dir (None: no window)
+    profile_dir: Optional[str] = None
+    profile_steps: tuple = (10, 15)
+    # anomaly mode and a finite check of the loss and gradients every step
+    debug_nans: bool = False
     model_parallel: int = 1  # tensor-parallel axis: not ported (> 1 raises)
     # data parallel: join a process group before anything else (one
     # trainer process per card; 'auto' = torchrun's environment).
@@ -116,16 +127,11 @@ class TrainerConfig:
     process_id: Optional[int] = None
 
     def __post_init__(self):
-        bad = [k for k in UNPORTED if getattr(self, k)]
-        if bad:
-            raise NotImplementedError(
-                f"TrainerConfig: {bad} not ported (NaN debugging has no "
-                "port)")
         if self.model_parallel > 1:
             raise NotImplementedError(
                 "TrainerConfig: model_parallel > 1, the tensor-parallel "
                 "'model' axis, is not ported yet (ROADMAP.md Queue 1 item "
-                "10); data parallelism over the process group is")
+                "10.4); data parallelism over the process group is")
 
 
 def resolve_dtype(dtype, device) -> torch.dtype:
@@ -470,7 +476,11 @@ class Trainer:
                 start_epoch = int(restored["epoch"])
                 logger.print_message(f"Resumed from epoch {start_epoch}")
 
+        window = _ProfileWindow(cfg, self.device, self.primary)
+
         def step_fn(engine, batch):
+            it = engine.state.iteration
+            window.at(it)
             # host-side real-sample count the feeds attach (of the global
             # batch: this rank holds 1 / world of it); a short final batch
             # routes to the mask-weighted-BN step
@@ -478,7 +488,11 @@ class Trainer:
             ragged = (n_real is not None
                       and n_real < batch["label"].shape[0] * self.world)
             step = train_step_masked if ragged else train_step
-            aux = step(self.state, batch)
+            with window.iteration(it):
+                if cfg.debug_nans:
+                    aux = _checked_step(step, self.state, batch, it)
+                else:
+                    aux = step(self.state, batch)
             epoch_outputs.append(aux)  # device tensors; not synced here
             return aux
 
@@ -561,7 +575,13 @@ class Trainer:
             if self.group is not None:
                 dist.barrier(self.group)
 
-        trainer.run(feed, cfg.epochs, start_epoch=start_epoch)
+        anomaly = (torch.autograd.detect_anomaly(check_nan=True)
+                   if cfg.debug_nans else contextlib.nullcontext())
+        try:
+            with anomaly:
+                trainer.run(feed, cfg.epochs, start_epoch=start_epoch)
+        finally:
+            window.close()  # a window the run did not reach the end of
 
         res_fold = None
         if test_loader is not None:
@@ -576,6 +596,72 @@ class Trainer:
             res_fold = [metrics["loss"], metrics["accuracy"], metrics["sen"],
                         metrics["spe"], metrics["f1"], metrics["auc"]]
         return res_fold
+
+
+class _ProfileWindow:
+    """`TrainerConfig.profile_dir`'s window: a `torch.profiler.profile`
+    (CPU, and CUDA on a card) from global iteration `profile_steps[0]` up
+    to `profile_steps[1]`, each iteration inside a record_function range
+    "iteration <n>"; on closing, after a device sync, a Chrome trace
+    `trace_<start>_<stop>.json` in `profile_dir`. Only the primary rank
+    profiles; without `profile_dir` every method returns at once."""
+
+    def __init__(self, cfg, device: torch.device, primary: bool):
+        self.dir = cfg.profile_dir if primary else None
+        self.start, self.stop = cfg.profile_steps
+        self.device = device
+        self.prof = None
+
+    def at(self, iteration: int):
+        if self.dir is None:
+            return
+        if iteration == self.start and self.prof is None:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.start()
+        elif iteration == self.stop:
+            self.close()
+
+    def iteration(self, iteration: int):
+        if self.prof is None:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function(f"iteration {iteration}")
+
+    def close(self):
+        """Sync the device, stop the window and write its trace."""
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        self.prof.export_chrome_trace(os.path.join(
+            self.dir, f"trace_{self.start}_{self.stop}.json"))
+        self.prof = None
+
+
+def _checked_step(step, state, batch, iteration: int) -> dict:
+    """`debug_nans`: run the step (anomaly mode is on: a NaN in the
+    backward raises there), then check the loss and every gradient at one
+    sync; the first NaN or inf raises `FloatingPointError`."""
+    try:
+        aux = step(state, batch)
+    except RuntimeError as e:
+        if "returned nan values" not in str(e):
+            raise
+        raise FloatingPointError(
+            f"debug_nans: iteration {iteration}: {e}") from e
+    named = [("loss", aux["loss"])] + [
+        (n, p.grad) for n, p in state.model.named_parameters()
+        if p.grad is not None]
+    finite = torch.stack([torch.isfinite(t).all() for _, t in named]).cpu()
+    if not bool(finite.all()):
+        bad = named[int((~finite).nonzero()[0, 0])][0]
+        raise FloatingPointError(
+            f"debug_nans: iteration {iteration}: non-finite {bad}")
+    return aux
 
 
 def rank_seed(seed: int, rank: int) -> int:
