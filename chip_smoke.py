@@ -229,6 +229,27 @@ before the final line:
             the second epoch: one Chrome trace holding the port's kernels,
             by their `__global__` names in csrc/, beside cuDNN's, and its
             top device items printed
+19. model axis  two Gloo ranks sharing the card on a data-1 x model-2
+            mesh (`parallel.make_mesh`), each holding its rows of the
+            weights JAX's rule shards (`param_shardings`, min_size 2048:
+            every body conv, dense layer and head, not the stem): (a) one
+            float32 SGD step of full-width ModelAd at 182x218x182 on a
+            global batch of MP_CHECK_BATCH against the single-process step
+            on the same pairs by the train-check rule (the spread of
+            CHECK_DRAWS perturbed single-process steps), the ranks' whole
+            states bit-identical, each rank's rows of every sharded weight
+            its rows of the whole, and the size arguments of every launch
+            of K8 / K9 / K4 / K7 / K2 printed (the rank's channel and head
+            slices); (b) MP_STEPS bfloat16 Adam steps at batch MP_BATCH:
+            ms/step and each rank's peak memory beside one process's on
+            the same batches, every K2 / K5 / K6 / K8 / K9 launch "mma" and
+            every K4 / K7 launch "vec", after one step at batch
+            MP_CHECK_BATCH (not timed) in which every call of K6, K7, K8
+            (forward and dx) and K9 is held against its plain version at
+            phase 3's tolerances; (c) a `transformer_res`
+            request at 182x218x182, batch MP_BATCH, through
+            `make_sharded_inference_fn(model_axis=2)` in float32 within
+            1e-4 of `make_inference_fn`, K10 on 2 of 4 heads
 
 The line before the last is a JSON object with one entry per kernel: `ms`,
 `plain_ms`, `bound_ms`, `bound_by` and `library_ms` belong to the bfloat16
@@ -237,9 +258,9 @@ under `full_resolution`, its launch floor under `launch_floor_ms`),
 `max_abs_err` is the largest over all its cases, `launches` its count over
 the six serving and train runs, the learning check, the two k-fold CLI
 runs of phase 14, the four CLI runs of phase 15, phase 16's bf16 runs,
-every rank of phase 17 and phase 18's runs (a request of each loaded
-program at each batch, each sharded rank, the profiled fit) together, each
-counted from zero. Before it a `[time]` line gives the
+every rank of phase 17, phase 18's runs (a request of each loaded program
+at each batch, each sharded rank, the profiled fit) and every rank of
+phase 19 together, each counted from zero. Before it a `[time]` line gives the
 seconds each group of phases took. The last line is
 {"ok": true, "device": {...}}.
 
@@ -327,6 +348,11 @@ DP_WORLD, DP_BATCH, DP_PROFILED, DP_TIMEOUT = 2, 8, 3, 300
 ARTIFACT_BATCHES, RES_ARTIFACT_BATCHES, ARTIFACT_REPEATS = (8, 3), (6, 1), 6
 SHARD_WORLD, SHARD_BATCH, SHARD_TIMEOUT = 2, 8, 300
 PROFILE_EPOCHS = 3
+# phase 19, the model axis: the ranks (one model group), the f32 check's
+# global batch, the bf16 steps' batch and count, the transformer_res
+# request's repeats, the children's time limit (s)
+MP_WORLD, MP_CHECK_BATCH, MP_BATCH, MP_STEPS = 2, 2, 6, 3
+MP_REQUESTS, MP_TIMEOUT = 3, 300
 # phase 18 (a): K4 / K7's (mode, lanes) opchecked on the card (the CPU
 # tests take all four)
 OPCHECK_POOLS = (("max", True), ("avg", False))
@@ -3037,7 +3063,8 @@ def dp_child(task_path, rank):
     with open(task_path) as f:
         task = json.load(f)
     {"step": _dp_child_step, "cli": _dp_child_cli, "load": _child_load,
-     "shard": _child_shard}[task["kind"]](task, rank)
+     "shard": _child_shard, "model_axis": _mp_child}[task["kind"]](task,
+                                                                   rank)
     return 0
 
 
@@ -3356,12 +3383,12 @@ def _artifact_inputs(batch, volume, seed):
                  for _ in range(2))
 
 
-def _served(fn, vols):
-    """ARTIFACT_REPEATS calls of fn(*vols): (the last probabilities on the
-    CPU, the median ms of the calls after the first, the launches and
-    variants of the last call)."""
+def _served(fn, vols, repeats=ARTIFACT_REPEATS):
+    """`repeats` calls of fn(*vols): (the last probabilities on the CPU,
+    the median ms of the calls after the first, the launches and variants
+    of the last call)."""
     times = []
-    for _ in range(ARTIFACT_REPEATS):
+    for _ in range(repeats):
         reset_counts()
         t0 = time.perf_counter()
         probs = fn(*vols)
@@ -3621,13 +3648,334 @@ def artifact_check(card):
     return runs
 
 
+# ----- phase 19: the model axis -----
+
+@contextlib.contextmanager
+def _launch_sizes():
+    """{kernel name: the distinct size arguments of its launches} while the
+    context is open: the integers of each launch's arguments that are not
+    pointers (batch, spatial sizes, channels or heads, then flags and
+    variant codes), in the launch's order."""
+    from transmf_ad_tpu_torch import _build
+
+    seen, launch = {}, _build.Kernel.launch
+
+    def spy(self, device, *args, variant=None):
+        sizes = tuple(a for a in args if type(a) is int and 0 <= a < 1 << 24)
+        seen.setdefault(self.name, set()).add(sizes)
+        return launch(self, device, *args, variant=variant)
+
+    _build.Kernel.launch = spy
+    try:
+        yield seen
+    finally:
+        _build.Kernel.launch = launch
+
+
+def _mp_sharded(model):
+    """{name: whole shape} of a model's sharded parameters."""
+    from transmf_ad_tpu_torch.parallel import shard_of
+
+    out = {}
+    for n, p in model.named_parameters():
+        s = shard_of(p)
+        if s is not None:
+            shape = list(p.shape)
+            shape[s.dim] = s.full
+            out[n] = tuple(shape)
+    return out
+
+
+def _mp_batches(batch, n):
+    """`n` batches of `batch` [0, 1) volume pairs at FULL_VOLUME, made on
+    the card from one seed (the same on every rank and in one process),
+    labels alternating."""
+    dg = torch.Generator(device="cuda").manual_seed(19)
+    return [{"MRI": torch.rand(batch, *FULL_VOLUME, generator=dg,
+                               device="cuda"),
+             "PET": torch.rand(batch, *FULL_VOLUME, generator=dg,
+                               device="cuda"),
+             "label": torch.arange(batch, device="cuda") % 2}
+            for _ in range(n)]
+
+
+def _mp_bf16_steps(model, group=None, mesh=None, held=None):
+    """MP_STEPS bf16 Adam (1e-4) steps of `model` at batch MP_BATCH, placed
+    on `mesh` when given: (ms of each step, peak GiB, launches, variants).
+    `held`: first one step at batch MP_CHECK_BATCH under
+    `held_in_model(held)` (the plain versions of K7 and K8 at batch 6 take
+    more memory than two ranks leave), not timed or counted."""
+    from transmf_ad_tpu_torch.parallel import shard_state
+    from transmf_ad_tpu_torch.train import create_state, make_train_step
+
+    state = create_state(model, "cuda", "auto", seed=0, name="Adam",
+                         lr=1e-4)
+    shard_state(state, group, mesh)
+    step = make_train_step(group=group)
+    if held is not None:
+        reset_counts()
+        with held_in_model(held):
+            step(state, _mp_batches(MP_CHECK_BATCH, 1)[0])
+            torch.cuda.synchronize()
+        _require_variants("model axis bf16, held", FAST)
+    batches = _mp_batches(MP_BATCH, MP_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    for batch in batches:
+        t0 = time.perf_counter()
+        aux = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        if not math.isfinite(float(aux["loss"])):
+            raise AssertionError(f"model axis bf16: loss {aux['loss']}")
+    return (times, torch.cuda.max_memory_allocated() / 2**30, _launches(),
+            _require_variants("model axis bf16", FAST))
+
+
+def _mp_child(task, rank):
+    """A rank of phase 19: once the parent's go-ahead file exists (the card
+    is then the ranks' alone), (a) the float32 step, (b) the bfloat16
+    steps, (c) the transformer_res request, on the data-1 x model-2 mesh
+    of the two ranks."""
+    from transmf_ad_tpu_torch.models import build_model
+    from transmf_ad_tpu_torch.parallel import (full_state_dict,
+                                               init_distributed, make_mesh,
+                                               shard_of, shard_state,
+                                               shutdown, world_group)
+    from transmf_ad_tpu_torch.serving import make_sharded_inference_fn
+    from transmf_ad_tpu_torch.train import create_state, make_train_step
+
+    init_distributed(f"localhost:{task['port']}", task["world"], rank,
+                     backend="gloo", device="cuda")
+    try:
+        mesh = make_mesh({"data": 1, "model": task["world"]})
+        _wait_for_file(task["go"], MP_TIMEOUT)
+        out = {}
+        # (a)
+        model = build_model("ad", head_dropout=0.0)
+        model.load_state_dict(torch.load(task["weights"], weights_only=True))
+        before = _snapshot(model)
+        state = create_state(model, "cuda", torch.float32, name="SGD",
+                             lr=1.0, milestones=())
+        shard_state(state, mesh.data_group, mesh)
+        out["sharded"] = _mp_sharded(model)
+        batch = torch.load(task["batch"], weights_only=True)
+        step = make_train_step(group=mesh.data_group)
+        reset_counts()
+        with _launch_sizes() as sizes:
+            aux = step(state, batch)
+            torch.cuda.synchronize()
+        out["f32"] = {"launches": _launches(), "sizes": sizes}
+        got = {k: aux[k].float().cpu() for k in ("loss", "ce_loss",
+                                                 "ad_loss")}
+        whole = full_state_dict(model)
+        for k, v in whole.items():
+            v = v.detach().float().cpu()
+            got[k if "running" in k else k + " update"] = (
+                v if "running" in k else v - before[k])
+        out["f32"]["step"] = got
+        # this rank's rows of each sharded weight, bit for bit those of the
+        # whole that the check holds
+        out["f32"]["not_rows"] = [
+            n for n, p in model.named_parameters() if shard_of(p) is not None
+            and not torch.equal(p.detach(), shard_of(p).rows(whole[n]))]
+        del model, state, aux
+        torch.cuda.empty_cache()
+        # (b)
+        model = build_model("ad")
+        model.load_state_dict(torch.load(task["weights"], weights_only=True))
+        held = {}
+        times, peak, launches, variants = _mp_bf16_steps(
+            model, mesh.data_group, mesh, held)
+        out["bf16"] = {"ms": times, "peak": peak, "launches": launches,
+                       "variants": variants, "held": held}
+        del model
+        torch.cuda.empty_cache()
+        # (c)
+        model = build_model("transformer_res")
+        model.load_state_dict(torch.load(task["res_weights"],
+                                         weights_only=True))
+        fn = make_sharded_inference_fn(model, world_group(), "cuda",
+                                       torch.float32,
+                                       model_axis=task["world"])
+        vols = _artifact_inputs(MP_BATCH, FULL_VOLUME, 19)
+        with _launch_sizes() as sizes:
+            probs, ms, launches, _ = _served(fn, vols, MP_REQUESTS)
+        out["res"] = {"probs": probs, "ms": ms, "launches": launches,
+                      "sizes": sizes}
+        torch.save(out, os.path.join(task["dir"], f"mp_r{rank}.pt"))
+    finally:
+        shutdown()
+
+
+def model_axis_check(card):
+    """Phase 19: the tensor-parallel model axis (see the module's
+    docstring). Returns the ranks' launch counts."""
+    from transmf_ad_tpu_torch.models import build_model
+    from transmf_ad_tpu_torch.serving import make_inference_fn
+    from transmf_ad_tpu_torch.utils.weights import init_weights
+
+    laps = [("start", time.perf_counter())]
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        g = torch.Generator().manual_seed(19)
+        model = build_model("ad", head_dropout=0.0)
+        init_weights(model, g)
+        randomize_bn(model, g)
+        weights = os.path.join(tmp, "ad.pt")
+        torch.save(model.state_dict(), weights)
+        res_model = _artifact_model("transformer_res")
+        res_weights = os.path.join(tmp, "res.pt")
+        torch.save(res_model.state_dict(), res_weights)
+        rng = np.random.default_rng(19)
+        batch = {k: torch.from_numpy(rng.random((MP_CHECK_BATCH,
+                                                 *FULL_VOLUME),
+                                                dtype=np.float32))
+                 for k in ("MRI", "PET")}
+        batch["label"] = torch.arange(MP_CHECK_BATCH) % 2
+        torch.save(batch, os.path.join(tmp, "batch.pt"))
+        task = os.path.join(tmp, "mp.json")
+        go = os.path.join(tmp, "go")
+        with open(task, "w") as f:
+            json.dump({"kind": "model_axis", "world": MP_WORLD,
+                       "port": _free_port(), "weights": weights,
+                       "res_weights": res_weights, "batch":
+                       os.path.join(tmp, "batch.pt"), "go": go, "dir": tmp},
+                      f)
+        procs = [_spawn(["--dp-child", task, str(r)],
+                        os.path.join(tmp, f"mp_r{r}.log"))
+                 for r in range(MP_WORLD)]
+        try:  # one process while the ranks start, the card to itself
+            ref = sgd_step(copy.deepcopy(model), "cuda", batch)
+            perturbed = [sgd_step(copy.deepcopy(model), "cuda",
+                                  perturb(batch, d))
+                         for d in range(CHECK_DRAWS)]
+            laps.append(("one process f32", time.perf_counter()))
+            bf16_model = build_model("ad")
+            bf16_model.load_state_dict(model.state_dict())
+            one_ms, one_peak, _, _ = _mp_bf16_steps(bf16_model)
+            del bf16_model
+            torch.cuda.empty_cache()
+            laps.append(("one process bf16", time.perf_counter()))
+            vols = _artifact_inputs(MP_BATCH, FULL_VOLUME, 19)
+            one_probs, one_req_ms, _, _ = _served(
+                make_inference_fn(res_model, "cuda", torch.float32), vols,
+                MP_REQUESTS)
+            del res_model
+            torch.cuda.empty_cache()
+            laps.append(("one process request", time.perf_counter()))
+            open(go, "w").close()
+            _wait_all(procs, MP_TIMEOUT)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        laps.append(("ranks", time.perf_counter()))
+        ranks = [torch.load(os.path.join(tmp, f"mp_r{r}.pt"),
+                            weights_only=False) for r in range(MP_WORLD)]
+    a = ranks[0]["f32"]["step"]
+    diff = [k for r in ranks[1:] for k in a
+            if not torch.equal(r["f32"]["step"][k], a[k])]
+    if diff:
+        raise AssertionError(f"model axis: the ranks' states differ in "
+                             f"{diff}")
+    rows = compare_steps(a, ref, perturbed)
+    sharded = ranks[0]["sharded"]
+    for r, res in enumerate(ranks):
+        if res["f32"]["not_rows"]:
+            raise AssertionError(f"model axis: rank {r}'s rows of "
+                                 f"{res['f32']['not_rows']} are not its "
+                                 "rows of the whole")
+    convs = [n for n in sharded if ".conv" in n]
+    if not convs or any(".conv1.0." in n for n in sharded) \
+            or not any("to_kv" in n for n in sharded):
+        raise AssertionError(f"model axis: sharded {sorted(sharded)}")
+    for r, res in enumerate(ranks):
+        want = ("band_conv", "band_dw", "affine_act_pool",
+                "affine_act_pool_bwd", "attention_fwd", "stem_conv_stats",
+                "stem_dw", "token_pool")
+        _require_launches(f"model axis rank {r} f32", res["f32"]["launches"],
+                          want, {"attention_fwd": ATTENTION_CALLS})
+        _require_launches(f"model axis rank {r} bf16",
+                          res["bf16"]["launches"], want,
+                          {"attention_fwd": ATTENTION_CALLS * MP_STEPS})
+        _require_launches(f"model axis rank {r} request",
+                          res["res"]["launches"], ("flash_fwd",),
+                          {"flash_fwd": ATTENTION_CALLS, "attention_fwd": 0})
+        # K2 / K10's sizes start (batch x heads, queries, keys, head dim)
+        heads = {s[0] // MP_BATCH for s in res["res"]["sizes"]["flash_fwd"]}
+        heads |= {s[0] // MP_CHECK_BATCH
+                  for s in res["f32"]["sizes"]["attention_fwd"]}
+        if heads != {4 // MP_WORLD}:
+            raise AssertionError(
+            f"model axis: K10 launched on "
+            f"{res['res']['sizes']['flash_fwd']}, K2 on "
+            f"{res['f32']['sizes']['attention_fwd']}")
+        share = _share(res["res"]["probs"], one_probs, _sums(1e-4))
+        if not _agree(res["res"]["probs"], one_probs, _sums(1e-4)):
+            raise AssertionError(
+                f"model axis: rank {r}'s transformer_res probabilities "
+                f"{res['res']['probs']} against one process {one_probs}")
+        for part in ("f32", "bf16", "res"):
+            runs[f"model axis {part} rank {r}"] = res[part]["launches"]
+    sizes = ranks[0]["f32"]["sizes"]
+    print(f"[model axis, step] full-width ModelAd f32, global batch "
+          f"{MP_CHECK_BATCH} x {FULL_VOLUME}, data 1 x model {MP_WORLD} "
+          f"(Gloo, one card), {len(sharded)} weights sharded "
+          f"({sum(math.prod(s) for s in sharded.values())} of "
+          f"{sum(p.numel() for p in model.parameters())} parameters): "
+          f"loss {float(a['loss']):.6f} vs one process "
+          f"{float(ref['loss']):.6f}; all {len(rows)} tensors within the "
+          f"train-check rule, closest "
+          f"{[(n, round(t, 3)) for t, _, n in rows[:3]]}; the ranks' whole "
+          f"states bit-identical, each rank's rows of every sharded weight "
+          f"its rows of the whole", flush=True)
+    print(f"[model axis, step] launch sizes on rank 0 (the integer "
+          f"arguments: batch, sizes, channels or heads, flags, codes): "
+          + "; ".join(f"{k} {sorted(sizes[k])}" for k in
+                      ("band_conv", "band_dw", "affine_act_pool",
+                       "affine_act_pool_bwd", "attention_fwd")
+                      if k in sizes), flush=True)
+    for r, res in enumerate(ranks):
+        b = res["bf16"]
+        print(f"[model axis, bf16] rank {r}: batch {MP_BATCH} x "
+              f"{FULL_VOLUME}, Adam 1e-4, head dropout 0.5: step ms "
+              f"{[round(t, 2) for t in b['ms']]} (median after the first "
+              f"{float(np.median(b['ms'][1:])):.2f}), peak "
+              f"{b['peak']:.2f} GiB; one process on the same batches "
+              f"{[round(t, 2) for t in one_ms]} (median after the first "
+              f"{float(np.median(one_ms[1:])):.2f}), peak {one_peak:.2f} "
+              f"GiB; variants {b['variants']}; the first step's calls "
+              f"held against their plain versions (calls, worst share of "
+              f"the tolerance) "
+              f"{ {k: (c, round(w, 3)) for k, (c, w) in b['held'].items()} }"
+              f" on {card}", flush=True)
+    print(f"[model axis, request] transformer_res f32, batch {MP_BATCH} x "
+          f"{FULL_VOLUME}, make_sharded_inference_fn(model_axis="
+          f"{MP_WORLD}): against make_inference_fn "
+          f"{float((ranks[0]['res']['probs'] - one_probs).abs().max()):.3g}"
+          f" ({share:.3f} of the 1e-4 rule); K10 sizes "
+          f"{sorted(ranks[0]['res']['sizes']['flash_fwd'])}; "
+          f"{[round(x['res']['ms'], 2) for x in ranks]} ms/request against "
+          f"{one_req_ms:.2f} for one process on {card}", flush=True)
+    spent = ", ".join(f"{n} {t - tb:.1f}" for (_, tb), (n, t)
+                      in zip(laps, laps[1:]))
+    print(f"[phase 19] seconds {laps[-1][1] - laps[0][1]:.1f} ({spent}) on "
+          f"{card}", flush=True)
+    return runs
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", nargs="+", default=(), metavar="KERNEL",
                         help="phases 1-3 for these kernels alone; prints no "
                         "result lines")
     parser.add_argument("--dp-child", nargs=2, metavar=("TASK", "RANK"),
-                        help=argparse.SUPPRESS)  # a child of phase 17 or 18
+                        help=argparse.SUPPRESS)  # a child of phase 17-19
     args = parser.parse_args(argv)
     if args.dp_child:
         return dp_child(args.dp_child[0], int(args.dp_child[1]))
@@ -3740,6 +4088,9 @@ def main(argv=None) -> int:
     artifact = artifact_check(card)
     reset_counts()
     lap("ops, artifact, sharded serving, profiler")
+    model_axis = model_axis_check(card)
+    reset_counts()
+    lap("model axis")
     runs = {"serving": serving, "train": trained,
             "serving, full resolution": full_serving,
             "train, full resolution": full_trained,
@@ -3747,7 +4098,7 @@ def main(argv=None) -> int:
             "train, full resolution, transformer_res": res_trained,
             "learning check": learned, "k-fold CLI": kfold,
             "k-fold CLI, CNN": kfold_cnn, **zoo, "remat": remat,
-            **data_parallel, **artifact}
+            **data_parallel, **artifact, **model_axis}
     print(f"[launches] {runs}", flush=True)
     spent = ", ".join(f"{name} {t - t_before:.1f}" for (_, t_before), (name, t)
                       in zip(laps, laps[1:]))

@@ -26,7 +26,26 @@ each job's results go to `<out>/<job name>_r<rank>.pt`:
 - "fit": `Trainer.fit` on a synthetic tree (the validation metrics of each
   epoch, `res_fold`, the generator at the end, every file this rank
   opened for writing), then a resumed `Trainer.fit` one epoch longer (each
-  rank's generator as the resumed run starts).
+  rank's generator as the resumed run starts);
+- "tp_step": one SGD (lr 1) train step on the ('data', 'model') mesh of
+  `mp` ranks a model group, the weights `param_shardings(model, mp,
+  min_size)` names cut into their rows: the step's outputs, the whole
+  state_dict after it, this rank's rows of the sharded weights, their
+  names, the head count of every `attention_core` call and of every
+  flash forward (`flash_min_keys` lowers the flash gate);
+- "tp_grads": for each model of `models` ((name, keywords, volume)),
+  seeded weights cut by `param_shardings(model, mp, min_size)`, a
+  train-mode forward (dropout from a seeded generator) on a seeded batch
+  of `batch` and the gradients of the sum of each output times a seeded
+  w: the logits and every gradient whole (gathered over the model group);
+  with `remat_min_mb`, TRANSMF_REMAT_MIN_MB for the job;
+- "tp_serve": `make_sharded_inference_fn(..., model_axis=mp)` over a
+  global batch (the probabilities every rank gets back, and the names
+  sharded);
+- "tp_resume": `Trainer.fit` of one epoch with `model_parallel` = mp
+  writing `latest.pt` (copied to `<out>/latest_mp<mp>.pt`), then a
+  resumed fit one epoch longer; with `resume_from`, only the resumed fit,
+  from that file. The whole state_dict after the resumed fit.
 """
 
 from __future__ import annotations
@@ -297,8 +316,153 @@ def job_serve(job, group, world, rank):
     return {"probs": probs, "ragged": ragged}
 
 
+def _mesh(job, world):
+    from transmf_ad_tpu_torch.parallel import make_mesh
+
+    return make_mesh({"data": world // job["mp"], "model": job["mp"]})
+
+
+def job_tp_step(job, group, world, rank):
+    from transmf_ad_tpu_torch import ops
+    from transmf_ad_tpu_torch.nn import attention as attn_mod
+    from transmf_ad_tpu_torch.ops import flash_attention as t_flash
+    from transmf_ad_tpu_torch.parallel import (full_state_dict,
+                                               param_shardings, place_global,
+                                               shard_model, shard_state)
+    from transmf_ad_tpu_torch.train import create_state, make_train_step
+
+    mesh = _mesh(job, world)
+    model = _model(job)
+    state = create_state(model, "cpu", name="SGD", lr=1.0, milestones=())
+    names = param_shardings(model, job["mp"], job["min_size"])
+    shard_model(model, names, mesh.axis)  # shard_state keeps these
+    shard_state(state, mesh.data_group, mesh)
+    heads, flash = [], []
+    core, fwd, gate = attn_mod.attention_core, t_flash.flash_fwd, \
+        ops.FLASH_MIN_KEYS
+
+    def core_spy(q, k, v, scale):
+        heads.append(q.shape[1])
+        return core(q, k, v, scale)
+
+    def fwd_spy(q, *a, **kw):
+        flash.append(q.shape[1])
+        return fwd(q, *a, **kw)
+
+    attn_mod.attention_core, t_flash.flash_fwd = core_spy, fwd_spy
+    ops.FLASH_MIN_KEYS = job.get("flash_min_keys", gate)
+    try:
+        batch = place_global(_global_batch(job["batch"]), mesh.data,
+                             mesh.data_index)
+        aux = make_train_step(adversarial=job["adversarial"],
+                              group=mesh.data_group)(state, batch)
+    finally:
+        attn_mod.attention_core, t_flash.flash_fwd = core, fwd
+        ops.FLASH_MIN_KEYS = gate
+    return {"aux": aux, "after": full_state_dict(model),
+            "local": {n: model.get_parameter(n).detach().clone()
+                      for n in names},
+            "names": names, "heads": heads, "flash": flash}
+
+
+def grads_case(name, kw, volume, batch, mesh=None, mp=1, min_size=2048):
+    """(logits, {parameter: whole gradient}) of one train-mode forward of
+    `name` (weights, inputs, dropout and each output's cotangent w from
+    seeds) and the backward of the sum of output * w; sharded over
+    `mesh`'s model axis when given."""
+    from transmf_ad_tpu_torch.models import build_model
+    from transmf_ad_tpu_torch.parallel import (param_shardings, shard_model,
+                                               shard_of)
+    from transmf_ad_tpu_torch.parallel.tensor import (all_gather,
+                                                      reduce_partial_grads)
+    from transmf_ad_tpu_torch.utils.weights import init_weights
+
+    model = build_model(name, **kw)
+    init_weights(model, torch.Generator().manual_seed(5))
+    if mesh is not None:
+        shard_model(model, param_shardings(model, mp, min_size), mesh.axis)
+    rng = np.random.default_rng(6)
+    xs = [torch.from_numpy(rng.standard_normal((batch, *volume, 1))
+                           .astype(np.float32))
+          for _ in range(1 if name == "single" else 2)]
+    out = model(*xs, train=True, generator=torch.Generator().manual_seed(7))
+    outs = out if isinstance(out, tuple) else (out,)
+    sum(o * torch.from_numpy(rng.standard_normal(tuple(o.shape))
+                             .astype(np.float32))
+        for o in outs).sum().backward()
+    logits = outs[0]
+    reduce_partial_grads(model)
+    grads = {}
+    for n, p in model.named_parameters():
+        s = shard_of(p)
+        grads[n] = (p.grad if s is None
+                    else s.join(all_gather(p.grad, s.axis.group)))
+    return logits.detach(), grads
+
+
+def job_tp_grads(job, group, world, rank):
+    mesh = _mesh(job, world)
+    saved = os.environ.get("TRANSMF_REMAT_MIN_MB")
+    if "remat_min_mb" in job:
+        os.environ["TRANSMF_REMAT_MIN_MB"] = str(job["remat_min_mb"])
+    try:
+        return {name: grads_case(name, kw, volume, job["batch"], mesh,
+                                 job["mp"], job["min_size"])
+                for name, kw, volume in job["models"]}
+    finally:
+        if saved is None:
+            os.environ.pop("TRANSMF_REMAT_MIN_MB", None)
+        else:
+            os.environ["TRANSMF_REMAT_MIN_MB"] = saved
+
+
+def job_tp_serve(job, group, world, rank):
+    from transmf_ad_tpu_torch.parallel import param_shardings
+    from transmf_ad_tpu_torch.serving import make_sharded_inference_fn
+
+    model = _model(job)
+    fn = make_sharded_inference_fn(model, group, "cpu", model_axis=job["mp"])
+    batch = _global_batch(job["batch"])
+    return {"probs": fn(*(batch[k] for k in ("MRI", "PET"))),
+            "names": param_shardings(model, job["mp"])}
+
+
+def job_tp_resume(job, group, world, rank):
+    import shutil
+
+    from transmf_ad_tpu_torch.parallel import full_state_dict
+    from transmf_ad_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    def loaders():  # fresh ones for each fit, as a new process has
+        return (_loader(job, job["train"], shuffle=True, seed=job["seed"]),
+                _loader(job, job["val"]))
+
+    cfg = TrainerConfig(**job["cfg"], save_dir=job["save_dir"],
+                        device="cpu", model_parallel=job["mp"],
+                        save_latest_every=1)
+    if "resume_from" in job:
+        if rank == 0:
+            os.makedirs(job["save_dir"], exist_ok=True)
+            shutil.copy(job["resume_from"],
+                        os.path.join(job["save_dir"], "latest.pt"))
+    else:
+        Trainer(cfg).fit(*loaders())
+        if rank == 0:
+            shutil.copy(os.path.join(job["save_dir"], "latest.pt"),
+                        os.path.join(job["out"], f"latest_mp{job['mp']}.pt"))
+    torch.distributed.barrier()
+    resumed = Trainer(dataclasses.replace(cfg, resume=True,
+                                          epochs=cfg.epochs + 1))
+    resumed.fit(*loaders())
+    return {"after": full_state_dict(resumed.state.model),
+            "step": resumed.state.step}
+
+
 JOBS = {"step": job_step, "eval": job_eval, "feeds": job_feeds,
-        "fit": job_fit, "allreduce": job_allreduce, "serve": job_serve}
+        "fit": job_fit, "allreduce": job_allreduce, "serve": job_serve,
+        "tp_step": job_tp_step, "tp_grads": job_tp_grads,
+        "tp_serve": job_tp_serve,
+        "tp_resume": job_tp_resume}
 
 
 def main(task_path, rank):
@@ -315,12 +479,14 @@ def main(task_path, rank):
                           WORLD_SIZE=str(world), MASTER_ADDR="localhost",
                           MASTER_PORT=str(task["port"]))
         init_distributed("auto", device="cpu", timeout=timeout)
-    elif any(job["kind"] != "fit" for job in task["jobs"]):
+    elif any(job["kind"] not in ("fit", "tp_resume")
+             for job in task["jobs"]):
         init_distributed(f"localhost:{task['port']}", world, rank,
                          device="cpu", timeout=timeout)
     try:
         for job in task["jobs"]:
-            if job["kind"] == "fit":  # the Trainer joins the group itself
+            job.setdefault("out", out)
+            if job["kind"] in ("fit", "tp_resume"):  # the Trainer joins
                 job["cfg"].update(coordinator_address=
                                   f"localhost:{task['port']}",
                                   num_processes=world, process_id=rank)

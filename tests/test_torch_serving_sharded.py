@@ -28,7 +28,6 @@ from transmf_ad_tpu_torch.serving import (export_inference,
                                           make_sharded_inference_fn)
 
 
-
 @pytest.fixture(autouse=True)
 def _one_thread():
     """One intra-op thread: the tier runs six test workers at once."""
@@ -74,14 +73,6 @@ def test_sharded_without_group_is_make_inference_fn(states, rng):
     mri, pet = _vols(rng, 3)
     _equal(make_sharded_inference_fn(port, None, "cpu")(mri, pet),
            make_inference_fn(port, "cpu")(mri, pet))
-
-
-def test_sharded_model_axis_raises(states):
-    """JAX's data x model mesh shards the weights over a 'model' axis; the
-    port's tensor-parallel axis is not ported yet (ROADMAP.md item 10.4)."""
-    _, port = states
-    with pytest.raises(NotImplementedError, match="10.4"):
-        make_sharded_inference_fn(port, None, "cpu", model_axis=2)
 
 
 def test_loaded_program_needs_no_model_code(states, tmp_path):

@@ -128,16 +128,21 @@ def test_inverse_of_map_state_dict_zoo(name):
 
 def test_advit_reference_file_loads_without_its_mlp_head():
     """A reference ADVIT state_dict carries each ViT's `mlp_head`, which
-    the CLS-latent reading leaves dead: the Trainer's loader skips it (as
-    JAX's import does) and still requires every other key."""
+    the CLS-latent reading leaves dead: the port's importer skips it (as
+    JAX's import does), the strict loader takes the rest, and every other
+    key is still required."""
     from transmf_ad_tpu_torch.train.trainer import _load_model
+    from transmf_ad_tpu_torch.utils.torch_import import \
+        import_torch_checkpoint
 
     port = build_model("advit", input_shape=(32, 32, 79))
     sd = {k: torch.randn_like(t) for k, t in port.state_dict().items()}
     sd["vit_mri.mlp_head.0.weight"] = torch.zeros(2, 192)
     sd["vit_pet.mlp_head.0.bias"] = torch.zeros(2)
-    _load_model(port, sd)
+    _load_model(port, import_torch_checkpoint(sd, "advit", port))
     assert torch.equal(port.vit_pet.pos_embedding, sd["vit_pet.pos_embedding"])
+    with pytest.raises(RuntimeError, match="mlp_head"):
+        _load_model(port, sd)  # the strict loader takes no dead keys
     del sd["vit_mri.cls_token"]
-    with pytest.raises(RuntimeError, match="missing"):
-        _load_model(port, sd)
+    with pytest.raises(KeyError, match="cls_token"):
+        import_torch_checkpoint(sd, "advit", port)

@@ -8,7 +8,9 @@ run, reference: kfold_train_adversarial.py:229-250):
       --checkpoint 'checkpoints/EXP/0/best_label_*.pt' [--fold 0]
 
 `--checkpoint` is a glob of `.pt` files (the last match in sorted order is
-taken); the other flags are the training CLI's. `--model` is Transformer
+taken), the port's or a reference run's (read through
+`utils/torch_import.py`, which skips what the reference forward never
+reads); the other flags are the training CLI's. `--model` is Transformer
 (ModelAd), CNN (ModelCNNAd) or any key of the model registry, as in the JAX
 package's `evaluate.py`; the volumes are read as the model's k-fold driver
 reads them: MRI alone for 'single', padded to (128, 128, 79) for 'advit'

@@ -35,7 +35,9 @@ slice of the batch needs them, in one `all_to_all_single` a modality, and
 puts what it receives in place: copies only, never a sum of zero-padded
 contributions (-0.0 + 0.0 is +0.0), so the batch is bit for bit the host
 path's. Labels, 4 bytes a row, are on every rank. `HybridCachedFeed` stays
-single-process, as the JAX package's `Trainer.fit` gates it.
+single-process, as the JAX package's `Trainer.fit` gates it. With a
+tensor-parallel 'model' axis the group is the data group: the ranks of one
+model group hold the same rows.
 """
 
 from __future__ import annotations

@@ -359,9 +359,10 @@ class DeviceFeed:
     '_n_real' when `pad_to` is given. Used by `Trainer.fit` as the
     streaming feed; delegates `len`/`peek` to the wrapped loader.
 
-    group: a torch.distributed process group: the loader's batch is the
-    global one, padded to `pad_to` (by default the batch size rounded up to
-    a multiple of the world size), and only this rank's rows
+    group: a torch.distributed process group (the data group, under a
+    'model' axis): the loader's batch is the global one, padded to `pad_to`
+    (by default the batch size rounded up to a multiple of the group's
+    size), and only this rank's rows
     (`parallel.place_global`) are pinned and copied; '_n_real' stays the
     global count."""
 

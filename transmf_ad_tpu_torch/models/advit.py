@@ -32,6 +32,7 @@ from ..nn.batchnorm import ManualBN
 from ..nn.blocks import BAND_MIN_VOXELS, conv_bn_act, max_pool_window
 from ..nn.dropout import Dropout, dropout
 from ..ops import attention_core
+from ..parallel.tensor import full
 
 DEPTH_KERNEL = 25  # the to-2d convs' (1, 1, 25) window
 
@@ -163,8 +164,9 @@ class ViTEncoder(nn.Module):
                              f"{self.channels}) planes, got "
                              f"{tuple(img.shape)}")
         x = self.to_patch_embedding(img)
-        cls = self.cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
-        x = torch.cat([cls, x], dim=1) + self.pos_embedding.to(x.dtype)
+        # whole, where the model axis shards them (their last dimension)
+        cls = full(self.cls_token).to(x.dtype).expand(x.shape[0], -1, -1)
+        x = torch.cat([cls, x], dim=1) + full(self.pos_embedding).to(x.dtype)
         x = dropout(x, self.emb_dropout, train, generator)
         return self.transformer(x, train, generator)[:, 0]
 

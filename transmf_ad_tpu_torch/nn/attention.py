@@ -7,6 +7,14 @@ follow the reference torch code (`layers.{i}.{0,1}.norm`, `.fn.to_q`,
 `.fn.to_kv`, `.fn.to_out.0`, `.fn.net.{0,3}`), which
 `transmf_ad_tpu.utils.torch_import` maps.
 
+Over the tensor-parallel 'model' axis (`parallel/tensor.py`) a sharded
+`Linear` computes its rank's output features and gathers them. Where the
+heads divide over the axis and both projections are sharded, `Attention`
+runs the rank's heads alone: `to_q`'s rows are its heads, `to_kv`'s rows
+are cut as two blocks (k, then v), so its rows are those heads' keys and
+values, and the kernel's output is gathered into `to_out`. Otherwise it
+runs every head on the gathered projections.
+
 Parameters stay float32; each layer computes in the dtype of its input, as
 the JAX modules do with `dtype` set: Linear casts its weights to it,
 LayerNorm normalises in float32 and casts back. Dropout acts only with
@@ -23,14 +31,28 @@ from torch import nn
 
 from ..ops import attention_core
 from ..ops.pooling import fused_token_pool
+from ..parallel.tensor import shard_of
 from .dropout import Dropout
 
 
 class Linear(nn.Linear):
-    """nn.Linear computing in the input's dtype (float32 master weights)."""
+    """nn.Linear computing in the input's dtype (float32 master weights);
+    sharded over the model axis, it computes the rank's output features
+    (`column`) and all-gathers them."""
 
     def forward(self, x):
+        s = shard_of(self.weight)
+        if s is not None:
+            return s.gather(self.column(x), -1)
         b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), b)
+
+    def column(self, x):
+        """A sharded Linear's output features of this rank, from the
+        replicated `x`."""
+        s = shard_of(self.weight)
+        x = s.axis.copy_in(x)
+        b = None if self.bias is None else s.local(self.bias).to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), b)
 
 
@@ -84,6 +106,7 @@ class Attention(nn.Module):
         self.heads, self.dim_head = heads, dim_head
         self.to_q = Linear(dim, inner, bias=False)
         self.to_kv = Linear(dim, 2 * inner, bias=False)
+        self.to_kv.shard_blocks = 2  # k, then v: each cut over the ranks
         self.to_out = nn.Sequential(Linear(inner, dim), Dropout(dropout))
 
     def forward(self, x, context=None, train: bool = False, generator=None,
@@ -94,17 +117,26 @@ class Attention(nn.Module):
         b, n, _ = x.shape
         m = ctx.shape[1]
         h, dh = self.heads, self.dim_head
+        sq, skv = shard_of(self.to_q.weight), shard_of(self.to_kv.weight)
+        split = (sq is not None and skv is not None
+                 and h % sq.axis.size == 0)
+        if split:  # this rank's heads
+            h //= sq.axis.size
+            q, kv = self.to_q.column(x), self.to_kv.column(ctx)
+        else:
+            q, kv = self.to_q(x), self.to_kv(ctx)
 
         def heads_first(t, length):  # (B, L, H*dh) -> (B, H, L, dh)
             return t.reshape(b, length, h, dh).transpose(1, 2).contiguous()
 
-        k, v = self.to_kv(ctx).chunk(2, dim=-1)
-        out = attention_core(heads_first(self.to_q(x), n),
-                             heads_first(k, m), heads_first(v, m),
-                             scale=dh ** -0.5)
+        k, v = kv.chunk(2, dim=-1)
+        out = attention_core(heads_first(q, n), heads_first(k, m),
+                             heads_first(v, m), scale=dh ** -0.5)
+        out = out.transpose(1, 2).reshape(b, n, h * dh)
+        if split:
+            out = sq.gather(out, -1)
         proj, drop = self.to_out
-        return drop(proj(out.transpose(1, 2).reshape(b, n, h * dh)), train,
-                    generator)
+        return drop(proj(out), train, generator)
 
 
 class Transformer(nn.Module):

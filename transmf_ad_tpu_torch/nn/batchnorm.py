@@ -25,6 +25,13 @@ cotangent. A block that `nn/blocks.py` checkpoints recomputes its forward
 in the backward inside `recomputing(group)`: the same group, and no second
 update of the running statistics (the forward made it; the JAX package's
 `nn.remat` likewise drops the recompute's `batch_stats`).
+
+Behind a conv sharded over the tensor-parallel 'model' axis, `ManualBN`
+takes the conv's `Shard`: the moments are those of the rank's channels
+(synced over the data group alone), the scale and shift are the rank's
+rows (`Shard.local`), and the new batch mean and variance are all-gathered
+over the model group before they enter the running statistics, which stay
+whole and the same on every rank.
 """
 
 from __future__ import annotations
@@ -98,22 +105,27 @@ class _RunningStats(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def _update(self, mean, var, n):
+    def _update(self, mean, var, n, shard=None):
         """Running averages from the batch mean and BIASED variance over n
-        samples (running_var takes the unbiased one). Skipped while a
-        checkpointed block recomputes its forward."""
+        samples (running_var takes the unbiased one); a `shard`'s rows are
+        gathered whole first. Skipped while a checkpointed block recomputes
+        its forward."""
         if _SYNC["recompute"]:
             return
         with torch.no_grad():
+            if shard is not None:
+                mean, var = (shard.gather(t.detach(), 0) for t in (mean, var))
             var_u = var * (n / max(n - 1, 1) if isinstance(n, (int, float))
                            else n / torch.clamp(n - 1, min=1))
             m = _MOMENTUM
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1 - m) * var_u)
 
-    def _normalizer(self, mean, var):
-        scale = self.weight.float() * torch.rsqrt(var + self.eps)
-        return scale, self.bias.float() - mean * scale
+    def _normalizer(self, mean, var, shard=None):
+        w, b = ((self.weight, self.bias) if shard is None
+                else (shard.local(self.weight), shard.local(self.bias)))
+        scale = w.float() * torch.rsqrt(var + self.eps)
+        return scale, b.float() - mean * scale
 
 
 def _moments(y, mask):
@@ -135,18 +147,22 @@ class ManualBN(_RunningStats):
     """BatchNorm3d over a bias-free conv output, returned as an affine."""
 
     def forward(self, y=None, conv_bias=None, train: bool = False,
-                stats=None, mask=None):
+                stats=None, mask=None, shard=None):
         """float32 (scale, shift) with y * scale + shift == BN(y + bias).
 
         train: batch moments of y (B, ..., C), or the producer sums
         `stats` = (sum, sumsq, n) of y, or mask-weighted moments of y, and
         the running statistics move. `stats` and `mask` are mutually
-        exclusive: producer sums cover every sample of a padded batch."""
-        b = (torch.zeros_like(self.running_mean) if conv_bias is None
+        exclusive: producer sums cover every sample of a padded batch.
+        shard: the sharded conv's `Shard`; y and `conv_bias` are the rank's
+        channels, and so are the scale and shift returned."""
+        rm, rv = self.running_mean, self.running_var
+        if shard is not None:
+            rm, rv = shard.rows(rm, 0), shard.rows(rv, 0)
+        b = (torch.zeros_like(rm) if conv_bias is None
              else conv_bias.float())
         if not train:
-            return self._normalizer(self.running_mean.float() - b,
-                                    self.running_var.float())
+            return self._normalizer(rm.float() - b, rv.float(), shard)
         if stats is not None and mask is not None:
             raise ValueError("ManualBN: `stats` and `mask` are mutually "
                              "exclusive: producer-kernel sums cover the whole "
@@ -156,10 +172,10 @@ class ManualBN(_RunningStats):
         mean0 = s / n  # mean of the bias-free output
         var = ss / n - mean0 * mean0
         mean = mean0 + b
-        self._update(mean, var, n)
+        self._update(mean, var, n, shard)
         # shift = beta - (mean - b) * scale keeps the JAX algebra, so the
         # conv bias gets its (zero up to rounding) gradient the same way
-        return self._normalizer(mean - b, var)
+        return self._normalizer(mean - b, var, shard)
 
 
 class BatchNormMasked(_RunningStats):

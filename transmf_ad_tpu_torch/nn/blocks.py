@@ -31,6 +31,13 @@ are not stored, only the block's input. The recompute reruns the block's
 kernels (K5 or K8 with its sums, the BatchNorm statistics, K4); the
 running statistics move once (`batchnorm.recomputing`).
 
+Over the tensor-parallel 'model' axis (`parallel/tensor.py`) a block
+whose conv is sharded computes the rank's output channels through the same
+kernels (K3 / K5, K8, F.conv3d on the rank's rows of the weight), takes
+their BatchNorm moments, affine, activation and pool on that slice, and
+all-gathers the channels at the block's end: after the pool, whose output
+is 8x smaller than the conv's.
+
 Parameters carry the reference sNet's torch names (`conv1.0.weight`,
 `conv1.1.running_mean`, ... `conv4.4.bias`), which
 `transmf_ad_tpu.utils.torch_import.map_state_dict` reads.
@@ -53,6 +60,7 @@ from ..ops.pool3d import (avg_pool3d_2x2_affine_act,
                           max_pool3d_2x2_affine_act,
                           max_pool3d_2x2_affine_act_bc)
 from ..ops.stem import stem_conv, stem_conv_stats
+from ..parallel.tensor import shard_of
 from . import batchnorm
 from .batchnorm import ManualBN, bn_affine_reference
 
@@ -74,8 +82,14 @@ def conv_bn_act(x, conv: nn.Conv3d, bn: ManualBN, pool=None,
     `bn_mask` (B,) is given) and moves its running statistics.
     band_min_voxels: a 3^3 SAME stride-1 conv with Cin > 1 over at least
     this many voxels takes the band-conv kernel; the stem kernel takes a
-    3^3 SAME stride-1 conv from one channel."""
+    3^3 SAME stride-1 conv from one channel. A conv sharded over the model
+    axis gives the rank's channels, gathered at the end."""
     slope = SLOPES[act]
+    shard = shard_of(conv.weight)
+    bias = conv.bias
+    if shard is not None:
+        x = shard.axis.copy_in(x)
+        bias = shard.local(bias)
     w = conv.weight.to(x.dtype)
     cube = (conv.kernel_size == (3, 3, 3) and conv.stride == (1, 1, 1)
             and conv.padding == (1, 1, 1))
@@ -108,16 +122,18 @@ def conv_bn_act(x, conv: nn.Conv3d, bn: ManualBN, pool=None,
         y = y.permute(0, 2, 3, 4, 1).contiguous()
     if bn_mask is not None:
         stats = None  # the producer sums cover padded duplicates too
-    scale, shift = bn(y, conv.bias, train, stats, bn_mask)
+    scale, shift = bn(y, bias, train, stats, bn_mask, shard)
     if (stem or band) and pool == "max":
         z = y.shape[3]
-        return max_pool3d_2x2_affine_act(y, scale.repeat(z), shift.repeat(z),
-                                         slope)
-    if pool == "max":
-        return max_pool3d_2x2_affine_act_bc(y, scale, shift, slope)
-    if pool == "avg":
-        return avg_pool3d_2x2_affine_act(y, scale, shift, slope)
-    return bn_affine_reference(y, scale, shift, slope)
+        out = max_pool3d_2x2_affine_act(y, scale.repeat(z), shift.repeat(z),
+                                        slope)
+    elif pool == "max":
+        out = max_pool3d_2x2_affine_act_bc(y, scale, shift, slope)
+    elif pool == "avg":
+        out = avg_pool3d_2x2_affine_act(y, scale, shift, slope)
+    else:
+        out = bn_affine_reference(y, scale, shift, slope)
+    return out if shard is None else shard.gather(out, -1)
 
 
 def max_pool_window(x, window):

@@ -1,5 +1,6 @@
-"""Data-parallel training: the process group, this rank's rows of a
-global batch, and the replicated train state."""
+"""Data- and tensor-parallel training: the process groups of the
+('data', 'model') mesh, this rank's rows of a global batch, and the train
+state, replicated or cut into the model axis's rows."""
 
 from .distributed import (  # noqa: F401
     NullLogger,
@@ -13,4 +14,16 @@ from .distributed import (  # noqa: F401
     shutdown,
     world_group,
 )
-from .mesh import padded_batch, shard_state  # noqa: F401
+from .mesh import (  # noqa: F401
+    Mesh,
+    full_optimizer_state,
+    full_state_dict,
+    load_state_dict,
+    make_hybrid_mesh,
+    make_mesh,
+    padded_batch,
+    param_shardings,
+    shard_model,
+    shard_state,
+)
+from .tensor import ModelAxis, Shard, shard_of  # noqa: F401

@@ -1,12 +1,14 @@
-"""Data-parallel training over torch.distributed: one process per GPU.
+"""Training over torch.distributed: one process per GPU.
 
 Port of transmf_ad_tpu/parallel/distributed.py. The JAX package runs one
 SPMD program under `shard_map` over a mesh's 'data' axis, one process per
 host; here each rank is a process with one card (rank r on `cuda:{local
 rank}`), in a torch.distributed process group whose world is the 'data'
-axis. The psums of the JAX step (BatchNorm statistics, loss terms,
-gradients) become all-reduces over that group: NCCL between cards, Gloo on
-the CPU (and for ranks that share one card, which NCCL refuses).
+axis (`mesh.py` splits it into data and model groups for a tensor-parallel
+'model' axis). The psums of the JAX step (BatchNorm statistics, loss
+terms, gradients) become all-reduces over the data group: NCCL between
+cards, Gloo on the CPU (and for ranks that share one card, which NCCL
+refuses).
 
 What this module holds is the host-side plumbing:
 

@@ -4,7 +4,9 @@ Port of transmf_ad_tpu/serving.py:
 
 - `make_inference_fn`: the eval forward on one device;
 - `make_sharded_inference_fn`: the same over the ranks of a process group,
-  each rank serving its rows of every global batch;
+  each rank of the data axis serving its rows of every global batch, and
+  with a model axis each rank of a model group computing its rows of the
+  sharded weights' channels;
 - `export_inference` / `load_inference`: the eval forward with its weights
   as a `torch.export` program in a `.pt2` file, which a serving process
   loads and calls without the model code. The program calls the kernels
@@ -96,29 +98,42 @@ def make_sharded_inference_fn(model, group=None, device="cuda", dtype="auto",
                               adversarial: Optional[bool] = None,
                               model_axis: int = 1):
     """The eval forward over the ranks of `group`, the JAX package's
-    mesh-sharded serving on its data axis. Every rank calls the returned
-    fn(*vols) with the same global batch (host arrays or tensors), runs
-    its rows (`parallel.rank_slice`) through `make_inference_fn`, and gets
-    every rank's probabilities back in the global order
-    (`parallel.fetch_global`): a (B, 2) float32 tensor on `device`, the
-    same on every rank. Batch sizes must divide the group's size: a batch
-    that does not raises `ValueError` on every rank before any collective
-    (pad the last batch, as the feeds do for training). Without a group it
-    is `make_inference_fn`. The tensor-parallel `model_axis` is not ported
-    (ROADMAP.md Queue 1 item 10.4): larger than 1 raises."""
-    if model_axis > 1:
-        raise NotImplementedError(
-            "make_sharded_inference_fn: model_axis > 1, the tensor-parallel "
-            "'model' axis, is not ported yet (ROADMAP.md Queue 1 item "
-            "10.4); the data axis is")
-    infer = make_inference_fn(model, device, dtype, adversarial)
-    if group is None:
-        return infer
+    mesh-sharded serving. Every rank calls the returned fn(*vols) with the
+    same global batch (host arrays or tensors), runs its rows
+    (`parallel.rank_slice`) through `make_inference_fn`, and gets every
+    rank's probabilities back in the global order (`parallel.fetch_global`):
+    a (B, 2) float32 tensor on `device`, the same on every rank. Batch
+    sizes must divide the data axis's size: a batch that does not raises
+    `ValueError` on every rank before any collective (pad the last batch,
+    as the feeds do for training). Without a group it is
+    `make_inference_fn`.
+
+    model_axis: the ranks of the world (`group` is then the world group or
+    None) form the mesh {'data': W // model_axis, 'model': model_axis},
+    and a copy of `model` keeps this rank's rows of the weights JAX's rule
+    shards (`parallel.param_shardings`); `model` itself is left whole. A
+    world that `model_axis` does not divide raises `ValueError`."""
     import torch.distributed as dist
 
     from .parallel import fetch_global, rank_slice
 
-    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    if model_axis > 1:
+        import copy
+
+        from .parallel import make_mesh, param_shardings, shard_model
+
+        if group not in (None, dist.group.WORLD):
+            raise ValueError("make_sharded_inference_fn: a model axis is "
+                             "laid over the world group")
+        mesh = make_mesh({"data": -1, "model": model_axis})
+        model = copy.deepcopy(model).to(torch.device(device))
+        shard_model(model, param_shardings(model, model_axis), mesh.axis)
+        group, world, rank = mesh.data_group, mesh.data, mesh.data_index
+    elif group is None:
+        return make_inference_fn(model, device, dtype, adversarial)
+    else:
+        world, rank = dist.get_world_size(group), dist.get_rank(group)
+    infer = make_inference_fn(model, device, dtype, adversarial)
 
     def fn(*vols):
         rows = rank_slice(vols[0].shape[0], world, rank)

@@ -18,6 +18,17 @@ the cotangent (psum's transpose): each rank then holds the gradient of the
 sum of the W replicated global losses, and one all-reduce of the flat
 gradients divided by W (pmean) leaves the gradient of the global loss on
 every rank, the same bits on each. Buffer donation has no counterpart.
+
+Tensor parallel (the JAX package's 'model' axis, `parallel/mesh.py`): the
+model's sharded layers compute their rank's channels and gather them
+(`parallel/tensor.py`); `group` is then the data group, over which alone
+the BatchNorm moments, the losses and the gradient means run. After the
+backward the replicated parameters that sharded layers used on their
+slices have their gradients summed over the model group
+(`reduce_partial_grads`); a sharded weight's gradient is complete on its
+rank. The ranks of one model group draw the same augmentation and dropout
+(their generators are seeded alike), as JAX's key is replicated over
+'model'.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ from ..data.transforms import AugmentConfig, augment, draw_params
 from ..nn import batchnorm
 from ..nn.losses import adversarial_loss, cross_entropy
 from ..parallel.distributed import collective_flat, psum
+from ..parallel.tensor import reduce_partial_grads
 from ..serving import resolve_dtype
 from .metrics import MetricState
 from .optim import build_optimizer
@@ -130,9 +142,10 @@ def make_train_step(modalities: Sequence[str] = ("MRI", "PET"),
     mask_bn=True feeds the mask into every BatchNorm's batch moments, so a
     duplicate-padded batch trains like its real samples alone.
 
-    group: a torch.distributed process group: `batch` is this rank's rows
-    of the global batch, and the losses, BatchNorm moments and gradients
-    are those of the global batch (see the module's docstring). `logits`,
+    group: a torch.distributed process group (the data group): `batch` is
+    this rank's rows of the global batch, and the losses, BatchNorm moments
+    and gradients are those of the global batch (see the module's
+    docstring). `logits`,
     `d_mri`, `d_pet`, `label` and `mask` stay this rank's rows."""
     modalities = tuple(modalities)
 
@@ -167,6 +180,7 @@ def make_train_step(modalities: Sequence[str] = ("MRI", "PET"),
 
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        reduce_partial_grads(model)
         if group is not None:
             _pmean_grads(model.parameters(), group)
         state.optimizer.step()

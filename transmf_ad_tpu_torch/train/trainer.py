@@ -28,6 +28,20 @@ the same on every rank. Only rank 0 logs and writes checkpoints (the
 others get a `NullLogger`), with a barrier after each write; `latest.pt`
 holds every rank's generator, and a resume gives each rank its own.
 
+Tensor parallel (the JAX package's 'model' axis): `model_parallel` = m
+splits a world of W ranks into the mesh {'data': W // m, 'model': m}
+(`parallel.make_hybrid_mesh`; a world m does not divide raises
+`ValueError`, where JAX would leave devices out). The weights JAX's rule
+shards are cut into each model rank's rows after `init_state` and after
+every load (`parallel.shard_state`), and the sharded layers compute their
+rank's channels (`parallel/tensor.py`). The data group takes the place of
+the world wherever a batch is split or a sum runs over samples; the ranks
+of one model group get the same rows and draw from generators seeded from
+their data index, so they draw alike. Checkpoints stay layout-free: every
+file holds the whole state_dict (and whole optimizer moments), gathered
+over the model group, so a `latest.pt` written at one `model_parallel`
+resumes at another with the same data size.
+
 Two switches of the JAX config (`TrainerConfig`): `profile_dir` opens a
 `torch.profiler` window (CPU and CUDA activities) at global iteration
 `profile_steps[0]` and closes it at `profile_steps[1]`, after a device
@@ -38,10 +52,8 @@ the loss and every gradient after each step: the first NaN or inf raises
 `FloatingPointError` naming the iteration. Only this switch syncs each
 step; without it the steps stay queued.
 
-Not ported: the tensor-parallel 'model' axis (`model_parallel` > 1 raises;
-ROADMAP.md Queue 1 item 10.4); the JAX config's `use_pallas` and
-`data_parallel` fields are not fields here: a process group is always the
-data axis.
+The JAX config's `use_pallas` and `data_parallel` fields are not fields
+here: a process group is always the mesh.
 """
 
 from __future__ import annotations
@@ -58,12 +70,13 @@ import torch.distributed as dist
 
 from ..data.transforms import AugmentConfig
 from ..models import ADVERSARIAL, SINGLE_MODALITY, build_model
-from ..parallel import (NullLogger, fetch_global, init_distributed,
-                        is_primary, padded_batch, place_global,
-                        process_count, process_index, shard_state,
-                        world_group)
+from ..parallel import (NullLogger, fetch_global, full_optimizer_state,
+                        full_state_dict, init_distributed, is_primary,
+                        load_state_dict, make_hybrid_mesh, padded_batch,
+                        place_global, process_count, shard_of, shard_state)
 from ..serving import resolve_dtype as _resolve_auto
 from ..utils.logging import Logger
+from ..utils.torch_import import import_torch_checkpoint
 from ..utils.weights import init_weights
 from . import checkpoint as ckpt
 from .engine import Engine, Events
@@ -118,7 +131,9 @@ class TrainerConfig:
     profile_steps: tuple = (10, 15)
     # anomaly mode and a finite check of the loss and gradients every step
     debug_nans: bool = False
-    model_parallel: int = 1  # tensor-parallel axis: not ported (> 1 raises)
+    # the tensor-parallel 'model' axis: ranks per model group (a divisor
+    # of the number of processes; 1 = data parallel alone)
+    model_parallel: int = 1
     # data parallel: join a process group before anything else (one
     # trainer process per card; 'auto' = torchrun's environment).
     # save_dir must be storage every rank sees.
@@ -127,11 +142,9 @@ class TrainerConfig:
     process_id: Optional[int] = None
 
     def __post_init__(self):
-        if self.model_parallel > 1:
-            raise NotImplementedError(
-                "TrainerConfig: model_parallel > 1, the tensor-parallel "
-                "'model' axis, is not ported yet (ROADMAP.md Queue 1 item "
-                "10.4); data parallelism over the process group is")
+        if self.model_parallel < 1:
+            raise ValueError(f"TrainerConfig: model_parallel must be at "
+                             f"least 1, got {self.model_parallel}")
 
 
 def resolve_dtype(dtype, device) -> torch.dtype:
@@ -168,9 +181,27 @@ class Trainer:
         self.primary = is_primary()
         if not self.primary:
             logger = NullLogger()  # side effects belong to rank 0
-        self.group = world_group()
-        self.world, self.rank = process_count(), process_index()
         self.logger = logger or Logger(cfg.save_dir)
+        self.mesh = None
+        n, mp = process_count(), cfg.model_parallel
+        if n > 1:
+            if n % mp:
+                raise ValueError(
+                    f"TrainerConfig: model_parallel={mp} does not divide "
+                    f"the {n} processes (every process must be on the "
+                    "mesh)")
+            if mp > 1 and cfg.dim < 1024:
+                # the JAX package's soft gate
+                self.logger.print_message(
+                    f"WARNING: model_parallel={mp} at dim={cfg.dim}: "
+                    "tensor parallelism rarely pays below dim 1024 — "
+                    "data-parallel only is optimal at reference scale")
+            # data axis first: a model group is consecutive ranks
+            self.mesh = make_hybrid_mesh({"data": n // mp, "model": mp})
+        # the data group, and this rank's place on the data axis
+        self.group = self.mesh.data_group if self.mesh else None
+        self.world = self.mesh.data if self.mesh else 1
+        self.rank = self.mesh.data_index if self.mesh else 0
         self.dtype = resolve_dtype(cfg.dtype, self.device)
         self.model = None  # built by init_state, which sees the volumes
         self.adversarial = cfg.model in ADVERSARIAL
@@ -190,8 +221,9 @@ class Trainer:
         device starts from the same weights), the optimizer and scheduler,
         and the generator of the train step's draws, seeded from
         `cfg.seed + 1` as the JAX package's train key is (and from the
-        rank: `rank_seed`). Under a group the state is then broadcast from
-        rank 0."""
+        data index: `rank_seed`). Under a group the state is then placed on
+        the mesh: replicated from rank 0, the model axis's weights cut into
+        this rank's rows."""
         cfg = self.cfg
         self.model = build_model(
             cfg.model, dim=cfg.dim, depth=cfg.depth, heads=cfg.heads,
@@ -213,19 +245,23 @@ class Trainer:
             self.load_checkpoint(cfg.pretrained_path)
             self.logger.print_message(
                 f"Load pre-training model {cfg.pretrained_path}")
-        self.state = shard_state(self.state, self.group)
+        self.state = shard_state(self.state, self.group, self.mesh)
         return self.state
 
     def load_checkpoint(self, path: str):
         """Restore model weights and BN running statistics into the live
         state from a `.pt` / `.pth` file (the port's best checkpoint, or a
-        reference torch checkpoint under the same names). Requires
-        `init_state` to have run. A flax `.msgpack` raises. Every rank
-        loads; under a group rank 0's copy is then broadcast."""
+        reference torch checkpoint, read through
+        `utils.torch_import.import_torch_checkpoint`: the keys the JAX
+        package's importer reads, shape-checked). Requires `init_state` to
+        have run. A flax `.msgpack` raises. Every rank loads; under a
+        group the state is then placed on the mesh again."""
         if self.state is None:
             raise RuntimeError("load_checkpoint requires init_state first")
-        _load_model(self.state.model, ckpt.load(path))
-        return shard_state(self.state, self.group)
+        model = self.state.model
+        _load_model(model, import_torch_checkpoint(ckpt.load(path),
+                                                   self.cfg.model, model))
+        return shard_state(self.state, self.group, self.mesh)
 
     def evaluate_from_checkpoint(self, loader, checkpoint_path: str) -> dict:
         """Public one-call scoring entry: initialize (if needed), restore
@@ -270,7 +306,10 @@ class Trainer:
                 .to(self.device) for k, v in batch.items()}
 
     def param_count(self) -> int:
-        return sum(p.numel() for p in self.state.model.parameters())
+        """The model's parameters, whole (a sharded one counted over every
+        rank of the model axis)."""
+        return sum(p.numel() * (s.axis.size if (s := shard_of(p)) else 1)
+                   for p in self.state.model.parameters())
 
     # ----- evaluation -----
 
@@ -371,7 +410,7 @@ class Trainer:
                     + ("" if val_feed is val_loader
                        else f" + val {vb / 2**20:.0f} MB/device")
                     + f" (budget {budget / 2**20:.0f} MB)")
-            elif self.group is None \
+            elif self.mesh is None \
                     and cfg.device_cache in ("auto", "hybrid"):
                 # over-budget (or forced): hot fraction on the device, cold
                 # rows streamed; the transfer shrinks by the hot fraction
@@ -470,9 +509,9 @@ class Trainer:
                                       self.world):
                     logger.print_message(
                         "WARNING: latest checkpoint holds no generator state "
-                        f"for {self.world} ranks; the ranks keep fresh "
+                        f"for {self.world} data ranks; the ranks keep fresh "
                         "generators")
-                self.state = shard_state(self.state, self.group)
+                self.state = shard_state(self.state, self.group, self.mesh)
                 start_epoch = int(restored["epoch"])
                 logger.print_message(f"Resumed from epoch {start_epoch}")
 
@@ -554,26 +593,30 @@ class Trainer:
             engine.state.metrics["val"] = metrics
             # the val metrics, and so the best epoch, are the same on every
             # rank; rank 0 writes, the others track the same decision, and
-            # the barrier keeps them from reading a file before it lands
+            # the barrier keeps them from reading a file before it lands.
+            # Sharded weights are gathered by every rank of a model group.
+            sharded = self.mesh is not None and self.mesh.axis is not None
+            if self.primary or sharded:
+                best = _saveable(self.state)
             if self.primary:
-                checkpointer.maybe_save(
-                    _saveable(self.state), metrics["accuracy"],
-                    engine.state.epoch)
+                checkpointer.maybe_save(best, metrics["accuracy"],
+                                        engine.state.epoch)
             else:
                 checkpointer.track(metrics["accuracy"], engine.state.epoch)
             if cfg.save_latest_every and (
                 engine.state.epoch % cfg.save_latest_every == 0
             ):
                 latest = _saveable(self.state, full=True)
-                if self.group is not None:  # every rank's generator
-                    latest["generators"] = [None] * self.world
+                if self.mesh is not None:  # every rank's generator
+                    latest["generators"] = [None] * process_count()
                     dist.all_gather_object(latest["generators"],
-                                           latest["generator"], self.group)
+                                           latest["generator"])
+                    latest["model_parallel"] = self.mesh.model
                 if self.primary:
                     ckpt.save_latest(cfg.save_dir, {
                         **latest, "epoch": engine.state.epoch})
-            if self.group is not None:
-                dist.barrier(self.group)
+            if self.mesh is not None:
+                dist.barrier()
 
         anomaly = (torch.autograd.detect_anomaly(check_nan=True)
                    if cfg.debug_nans else contextlib.nullcontext())
@@ -665,9 +708,10 @@ def _checked_step(step, state, batch, iteration: int) -> dict:
 
 
 def rank_seed(seed: int, rank: int) -> int:
-    """The seed of rank `rank`'s generator: `seed` itself on rank 0 (the
-    single-process draws), another stream on every other rank, as the
-    JAX package folds the data axis's index into its key."""
+    """The seed of the generator of data index `rank`: `seed` itself on
+    data index 0 (the single-process draws), another stream on every
+    other, as the JAX package folds the data axis's index into its key
+    (and replicates it over 'model')."""
     return seed + (rank << 32)
 
 
@@ -714,38 +758,36 @@ def _fmt_metrics(m: dict) -> str:
 
 
 def _load_model(model, sd):
-    """Load a state_dict by the reference's names into `model`: every
-    parameter and running statistic must be there; a reference file's
-    BatchNorm `num_batches_tracked` counters and its ViTs' `mlp_head`
-    (dead under the CLS-latent reading of ADVIT, which the JAX package's
-    import skips too) are the only extra keys allowed."""
-    res = model.load_state_dict(sd, strict=False)
-    extra = [k for k in res.unexpected_keys
-             if not k.endswith("num_batches_tracked")
-             and ".mlp_head." not in k]
-    if res.missing_keys or extra:
-        raise RuntimeError(f"checkpoint does not match the model: missing "
-                           f"{res.missing_keys}, unexpected {extra}")
+    """Load a whole state_dict by the reference's names into `model`,
+    strictly (every parameter and running statistic, nothing else; a
+    reference file goes through `import_torch_checkpoint` first); a
+    sharded parameter takes this rank's rows."""
+    load_state_dict(model, sd)
 
 
 def _saveable(state, full: bool = False):
-    """The model's state_dict (CPU copies); with `full`, also the
-    optimizer, the scheduler, the step count and the generator's state."""
+    """The model's whole state_dict (CPU copies; sharded parameters
+    gathered over the model group, a collective there); with `full`, also
+    the optimizer (its moments whole), the scheduler, the step count and
+    the generator's state."""
     out = {k: v.detach().cpu().clone()
-           for k, v in state.model.state_dict().items()}
+           for k, v in full_state_dict(state.model).items()}
     if not full:
         return out
-    return {"model": out, "optimizer": state.optimizer.state_dict(),
+    return {"model": out, "optimizer": full_optimizer_state(state.optimizer),
             "scheduler": state.scheduler.state_dict(), "step": state.step,
             "generator": state.generator.get_state()}
 
 
 def _restore_state(state, restored, rank: int = 0, world: int = 1) -> bool:
     """Put a `latest.pt` dict (or a bare state_dict) back into `state`;
-    rank `rank` of `world` takes its own generator from 'generators' (a
-    single-process file's 'generator' is rank 0's). Returns False when a
-    full-state file holds no generator for this world size (the
-    generator is then left as it is)."""
+    data index `rank` of `world` takes the generator of its data index
+    from 'generators' (every rank's, in rank order, of a run whose model
+    groups had 'model_parallel' ranks; a single-process file's
+    'generator' is data index 0's). Returns False when a full-state file
+    holds no generator for this data size (the generator is then left as
+    it is). Whole moments of sharded parameters are cut by `shard_state`
+    after it."""
     _load_model(state.model, restored.get("model", restored))
     if "optimizer" in restored:
         state.optimizer.load_state_dict(restored["optimizer"])
@@ -753,9 +795,10 @@ def _restore_state(state, restored, rank: int = 0, world: int = 1) -> bool:
     if "step" in restored:
         state.step = int(restored["step"])
     gens = restored.get("generators")
+    mp = int(restored.get("model_parallel", 1))
     if gens is None and "generator" in restored:
-        gens = [restored["generator"]]
-    if gens is None or len(gens) != world:
+        gens, mp = [restored["generator"]], 1
+    if gens is None or len(gens) != world * mp:
         return "model" not in restored
-    state.generator.set_state(gens[rank])
+    state.generator.set_state(gens[rank * mp])
     return True
