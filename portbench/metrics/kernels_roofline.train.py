@@ -1,0 +1,8 @@
+"""The hand-written kernels' share of their roofline in the traced train
+steps: the sum over transmf:: op calls of the least time their shapes
+allow (`counts/kernels.py`), over the device time of their kernels."""
+from portbench import readers
+
+
+def read(ctx):
+    return readers.kernels_roofline_pct(ctx)
