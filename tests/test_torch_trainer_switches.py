@@ -11,8 +11,9 @@ at batch 2 without shuffling, so each pair enters at a known iteration.
   tree. Neither raises on the clean tree, and the port's clean run ends
   with the same weights with the switch on as off.
 - The profiler window: `profile_steps=(2, 4)` writes one Chrome trace into
-  `profile_dir` whose iteration ranges are 2 and 3; no trace without
-  `profile_dir`; a window still open when `fit` returns is written then.
+  `profile_dir` whose iteration ranges are 2 and 3, each around its step's
+  spans; no trace without `profile_dir`; a window still open when `fit`
+  returns is written then.
 - The new fields exist in both `TrainerConfig`s with JAX's defaults.
 """
 
@@ -36,6 +37,7 @@ from transmf_ad_tpu.train.steps import create_state, make_train_step
 from transmf_ad_tpu_torch.data import (ADNI, Loader, VolumeSource,
                                        make_synthetic_adni, nifti)
 from transmf_ad_tpu_torch.train.trainer import Trainer, TrainerConfig
+from transmf_ad_tpu_torch.utils import tracing
 
 SHAPE, BATCH = (16, 16, 16), 2
 # the tree's 8 ADCN rows, CN then AD, interleaved so every batch holds both
@@ -155,6 +157,37 @@ def test_profile_window_writes_one_trace(trees, tmp_path):
     (path,) = glob.glob(str(out / "*.json"))
     assert os.path.basename(path) == "trace_2_4.json"
     assert _ranges(path) == ["iteration 2", "iteration 3"]
+
+
+def test_profile_window_nests_the_spans(trees, tmp_path):
+    """With augmentation on, the window's trace holds each step's spans as
+    ranges inside its iteration's range; the tracer is off after the
+    window and holds nothing."""
+    clean, _ = trees
+    out = tmp_path / "trace"
+    src = VolumeSource(ADNI(clean, task="ADCN").data_dict, normalize=False)
+    cfg = dict(RUN, aug=True, save_dir=str(tmp_path / "run"), epochs=2,
+               profile_dir=str(out), profile_steps=(2, 4))
+    Trainer(TrainerConfig(**cfg)).fit(Loader(src, TRAIN, BATCH),
+                                      Loader(src, [0, 4], BATCH))
+    assert not tracing.ON and tracing.drain() == ([], {})
+    (path,) = glob.glob(str(out / "*.json"))
+    with open(path) as f:
+        ranges = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "user_annotation"]
+    its = {e["name"]: e for e in ranges if e["name"].startswith("iteration")}
+    assert sorted(its) == ["iteration 2", "iteration 3"]
+
+    def inside(e, outer):
+        return (e["tid"] == outer["tid"] and e["ts"] >= outer["ts"]
+                and e["ts"] + e["dur"] <= outer["ts"] + outer["dur"])
+
+    steps = [e for e in ranges if e["name"].startswith("step ")]
+    assert len(steps) == 2
+    assert all(any(inside(e, it) for it in its.values()) for e in steps)
+    held = {e["name"] for e in ranges if inside(e, its["iteration 2"])}
+    assert {"augment", "forward", "backward", "optimizer"} <= held
+    assert any(n.startswith("step ") for n in held)
 
 
 def test_no_trace_without_profile_dir(trees, tmp_path):

@@ -21,7 +21,9 @@ namespace (`define_op`): the dispatcher runs the op's CUDA implementation
 version for CPU tensors, and FakeTensors (`torch.export`, `opcheck`,
 `torch.compile`) see only its fake implementation, which launches and
 counts nothing. A traced or exported program therefore keeps the op in its
-graph, and its launches count as eager calls do.
+graph, and its launches count as eager calls do. While tracing is on
+(`utils/tracing.py`), each op's CPU and CUDA implementations count their
+calls and host time.
 """
 
 from __future__ import annotations
@@ -34,9 +36,12 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 import torch
+
+from .utils import tracing
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -193,6 +198,25 @@ def save_inputs(ctx, inputs, output):
     ctx.save_for_backward(*inputs)
 
 
+def _counted(name: str, impl):
+    """`impl` counting, while tracing is on (`utils/tracing.py`), its calls
+    in `op.<name>.calls` and its host ns (checks, variant, launch) in
+    `op.<name>.host_ns`."""
+    calls, host_ns = f"op.{name}.calls", f"op.{name}.host_ns"
+
+    @functools.wraps(impl)
+    def run(*args, **kwargs):
+        if not tracing.ON:
+            return impl(*args, **kwargs)
+        t0 = time.perf_counter_ns()
+        out = impl(*args, **kwargs)
+        tracing.count(host_ns, time.perf_counter_ns() - t0)
+        tracing.count(calls)
+        return out
+
+    return run
+
+
 def define_op(schema: str, plain, cuda, fake, backward=None,
               setup_context=None):
     """Register `transmf::<schema>` and return its default overload: `plain`
@@ -203,8 +227,8 @@ def define_op(schema: str, plain, cuda, fake, backward=None,
     device without the kernels, raises as a launch on it would."""
     name = schema.split("(", 1)[0]
     LIBRARY.define(schema)
-    LIBRARY.impl(name, plain, "CPU")
-    LIBRARY.impl(name, cuda, "CUDA")
+    LIBRARY.impl(name, _counted(name, plain), "CPU")
+    LIBRARY.impl(name, _counted(name, cuda), "CUDA")
 
     def fake_or_raise(*args, **kwargs):
         if any(isinstance(a, torch.Tensor) and a.device.type == "meta"

@@ -24,6 +24,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils import tracing
+
 
 @dataclass(frozen=True)
 class AugmentConfig:
@@ -44,9 +46,13 @@ def scale_intensity(vol: torch.Tensor) -> torch.Tensor:
 
 def draw_params(generator: torch.Generator, cfg: AugmentConfig, n: int = 1):
     """n draws of (flip, angle, zoom) as Python values, one per sample and
-    shared by its modalities. One read of the generator's device."""
-    u = torch.rand(n, 6, generator=generator,
-                   device=generator.device).tolist()
+    shared by its modalities. One read of the generator's device, which
+    waits for the work queued before it: the "sync" span and the
+    `host_syncs` counter of `utils/tracing.py`."""
+    u = torch.rand(n, 6, generator=generator, device=generator.device)
+    with tracing.span("sync"):
+        u = u.tolist()
+    tracing.count("host_syncs")
     out = []
     for p_flip, p_rot, u_rot, p_zoom, u_zoom, _ in u:
         lo, hi = -cfg.rotate_range_x, cfg.rotate_range_x

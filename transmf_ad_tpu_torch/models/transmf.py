@@ -40,6 +40,7 @@ from ..nn.blocks import (BAND_MIN_VOXELS, SNet, global_avg_pool,
                          tokens_from_volume)
 from ..nn.dropout import Dropout
 from ..nn.grl import revgrad
+from ..utils import tracing
 
 
 class _MLPHead(nn.Sequential):
@@ -113,14 +114,18 @@ class ModelAd(nn.Module):
         generator: the torch.Generator dropout draws from in training."""
         mri_feat = self.mri_cnn(mri, train, bn_mask)
         pet_feat = self.pet_cnn(pet, train, bn_mask)
-        d_mri = self.D(revgrad(global_avg_pool(mri_feat), self.grl_alpha),
-                       train, bn_mask)
-        d_pet = self.D(revgrad(global_avg_pool(pet_feat), self.grl_alpha),
-                       train, bn_mask)
-        fused = self.fuse_transformer(tokens_from_volume(mri_feat),
-                                      tokens_from_volume(pet_feat), train,
-                                      generator)
-        return self.fc_cls(fused, train, bn_mask, generator), d_mri, d_pet
+        with tracing.span("D"):
+            d_mri = self.D(revgrad(global_avg_pool(mri_feat),
+                                   self.grl_alpha), train, bn_mask)
+            d_pet = self.D(revgrad(global_avg_pool(pet_feat),
+                                   self.grl_alpha), train, bn_mask)
+        with tracing.span("fuse_transformer"):
+            fused = self.fuse_transformer(tokens_from_volume(mri_feat),
+                                          tokens_from_volume(pet_feat),
+                                          train, generator)
+        with tracing.span("fc_cls"):
+            logits = self.fc_cls(fused, train, bn_mask, generator)
+        return logits, d_mri, d_pet
 
 
 class ModelTransformer(nn.Module):
@@ -143,11 +148,12 @@ class ModelTransformer(nn.Module):
     def forward(self, mri, pet, train: bool = False, bn_mask=None,
                 generator=None):
         """mri, pet: (B, X, Y, Z, 1) -> logits (B, 2)."""
-        fused = self.fuse_transformer(
-            tokens_from_volume(self.mri_cnn(mri, train, bn_mask)),
-            tokens_from_volume(self.pet_cnn(pet, train, bn_mask)), train,
-            generator)
-        return self.fc_cls(fused, train, bn_mask, generator)
+        mri_tok = tokens_from_volume(self.mri_cnn(mri, train, bn_mask))
+        pet_tok = tokens_from_volume(self.pet_cnn(pet, train, bn_mask))
+        with tracing.span("fuse_transformer"):
+            fused = self.fuse_transformer(mri_tok, pet_tok, train, generator)
+        with tracing.span("fc_cls"):
+            return self.fc_cls(fused, train, bn_mask, generator)
 
 
 class ModelTransformerRes(nn.Module):
@@ -172,11 +178,13 @@ class ModelTransformerRes(nn.Module):
         """mri, pet: (B, X, Y, Z, 1) -> logits (B, 2)."""
         mri_tok = tokens_from_volume(self.mri_cnn(mri, train, bn_mask))
         pet_tok = tokens_from_volume(self.pet_cnn(pet, train, bn_mask))
-        mri_f, pet_f = self.fuse_transformer(mri_tok, pet_tok, train,
-                                             generator)
-        pooled = torch.cat([(mri_f + mri_tok).mean(dim=1),
-                            (pet_f + pet_tok).mean(dim=1)], dim=-1)
-        return self.fc_cls(pooled, train, bn_mask, generator)
+        with tracing.span("fuse_transformer"):
+            mri_f, pet_f = self.fuse_transformer(mri_tok, pet_tok, train,
+                                                 generator)
+        with tracing.span("fc_cls"):
+            pooled = torch.cat([(mri_f + mri_tok).mean(dim=1),
+                                (pet_f + pet_tok).mean(dim=1)], dim=-1)
+            return self.fc_cls(pooled, train, bn_mask, generator)
 
 
 class ModelCNN(nn.Module):
@@ -242,7 +250,9 @@ class ModelCNNAd(nn.Module):
         step's sake."""
         mri_vec = global_avg_pool(self.mri_cnn(mri, train, bn_mask))
         pet_vec = global_avg_pool(self.pet_cnn(pet, train, bn_mask))
-        d_mri = self.D(revgrad(mri_vec, self.grl_alpha), train, bn_mask)
-        d_pet = self.D(revgrad(pet_vec, self.grl_alpha), train, bn_mask)
-        logits = self.fc_cls(torch.cat([mri_vec, pet_vec], dim=-1))
+        with tracing.span("D"):
+            d_mri = self.D(revgrad(mri_vec, self.grl_alpha), train, bn_mask)
+            d_pet = self.D(revgrad(pet_vec, self.grl_alpha), train, bn_mask)
+        with tracing.span("fc_cls"):
+            logits = self.fc_cls(torch.cat([mri_vec, pet_vec], dim=-1))
         return logits, d_mri, d_pet

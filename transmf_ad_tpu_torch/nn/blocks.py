@@ -61,6 +61,7 @@ from ..ops.pool3d import (avg_pool3d_2x2_affine_act,
                           max_pool3d_2x2_affine_act_bc)
 from ..ops.stem import stem_conv, stem_conv_stats
 from ..parallel.tensor import shard_of
+from ..utils import tracing
 from . import batchnorm
 from .batchnorm import ManualBN, bn_affine_reference
 
@@ -90,49 +91,54 @@ def conv_bn_act(x, conv: nn.Conv3d, bn: ManualBN, pool=None,
     if shard is not None:
         x = shard.axis.copy_in(x)
         bias = shard.local(bias)
-    w = conv.weight.to(x.dtype)
-    cube = (conv.kernel_size == (3, 3, 3) and conv.stride == (1, 1, 1)
-            and conv.padding == (1, 1, 1))
-    stem = x.shape[-1] == 1 and cube
-    band = (not stem and cube
-            and x.shape[1] * x.shape[2] * x.shape[3] >= band_min_voxels)
-    stats = None
-    if stem:
-        # OIDHW (C, 1, 3, 3, 3) -> DHW-O (3, 3, 3, C)
-        wk = w[:, 0].permute(1, 2, 3, 0).contiguous()
-        if train:
-            y, st = stem_conv_stats(x[..., 0], wk)
-            stats = (st[0], st[1], y.numel() // y.shape[-1])
+    with tracing.span("conv"):
+        w = conv.weight.to(x.dtype)
+        cube = (conv.kernel_size == (3, 3, 3) and conv.stride == (1, 1, 1)
+                and conv.padding == (1, 1, 1))
+        stem = x.shape[-1] == 1 and cube
+        band = (not stem and cube
+                and x.shape[1] * x.shape[2] * x.shape[3] >= band_min_voxels)
+        stats = None
+        if stem:
+            # OIDHW (C, 1, 3, 3, 3) -> DHW-O (3, 3, 3, C)
+            wk = w[:, 0].permute(1, 2, 3, 0).contiguous()
+            if train:
+                y, st = stem_conv_stats(x[..., 0], wk)
+                stats = (st[0], st[1], y.numel() // y.shape[-1])
+            else:
+                y = stem_conv(x[..., 0], wk)
+        elif band:
+            # OIDHW (Cout, Cin, 3, 3, 3) -> DHWIO (3, 3, 3, Cin, Cout)
+            wk = w.permute(2, 3, 4, 1, 0).contiguous()
+            if train and bn_mask is None:
+                y, st = band_conv3d_stats(x, wk)
+                stats = (st[0], st[1], y.numel() // y.shape[-1])
+            else:
+                y = band_conv3d(x, wk)
         else:
-            y = stem_conv(x[..., 0], wk)
-    elif band:
-        # OIDHW (Cout, Cin, 3, 3, 3) -> DHWIO (3, 3, 3, Cin, Cout)
-        wk = w.permute(2, 3, 4, 1, 0).contiguous()
-        if train and bn_mask is None:
-            y, st = band_conv3d_stats(x, wk)
-            stats = (st[0], st[1], y.numel() // y.shape[-1])
-        else:
-            y = band_conv3d(x, wk)
-    else:
-        # a channels-last-3d view in and out: F.conv3d keeps the layout, so
-        # the permutes around it are views, not copies
-        wt = w.contiguous(memory_format=torch.channels_last_3d)
-        y = F.conv3d(x.permute(0, 4, 1, 2, 3), wt, stride=conv.stride,
-                     padding=conv.padding)
-        y = y.permute(0, 2, 3, 4, 1).contiguous()
+            # a channels-last-3d view in and out: F.conv3d keeps the
+            # layout, so the permutes around it are views, not copies
+            wt = w.contiguous(memory_format=torch.channels_last_3d)
+            y = F.conv3d(x.permute(0, 4, 1, 2, 3), wt, stride=conv.stride,
+                         padding=conv.padding)
+            y = y.permute(0, 2, 3, 4, 1).contiguous()
     if bn_mask is not None:
         stats = None  # the producer sums cover padded duplicates too
-    scale, shift = bn(y, bias, train, stats, bn_mask, shard)
-    if (stem or band) and pool == "max":
-        z = y.shape[3]
-        out = max_pool3d_2x2_affine_act(y, scale.repeat(z), shift.repeat(z),
-                                        slope)
-    elif pool == "max":
-        out = max_pool3d_2x2_affine_act_bc(y, scale, shift, slope)
-    elif pool == "avg":
-        out = avg_pool3d_2x2_affine_act(y, scale, shift, slope)
+    with tracing.span("BatchNorm statistics"):
+        scale, shift = bn(y, bias, train, stats, bn_mask, shard)
+    if pool is None:
+        with tracing.span("affine + activation"):
+            out = bn_affine_reference(y, scale, shift, slope)
     else:
-        out = bn_affine_reference(y, scale, shift, slope)
+        with tracing.span("pool"):
+            if (stem or band) and pool == "max":
+                z = y.shape[3]
+                out = max_pool3d_2x2_affine_act(y, scale.repeat(z),
+                                                shift.repeat(z), slope)
+            elif pool == "max":
+                out = max_pool3d_2x2_affine_act_bc(y, scale, shift, slope)
+            else:
+                out = avg_pool3d_2x2_affine_act(y, scale, shift, slope)
     return out if shard is None else shard.gather(out, -1)
 
 
@@ -155,6 +161,8 @@ _PLAN = (
     ("conv4", "0", "1", (4, 8), 3, None),
     ("conv4", "3", "4", (8, 4), 1, "avg"),
 )
+# each block's span (`utils/tracing.py`), named by its conv slot
+_BLOCK_SPANS = tuple(f"encoder {stage}.{cs}" for stage, cs, *_ in _PLAN)
 
 
 def _remat_worth_it(shape, features, itemsize=2):
@@ -217,21 +225,23 @@ class SNet(nn.Module):
 
     def forward(self, x, train: bool = False, bn_mask=None):
         wrap = self.remat and train and torch.is_grad_enabled()
-        for stage, cs, bs, _, _, pool in _PLAN:
+        for name, (stage, cs, bs, _, _, pool) in zip(_BLOCK_SPANS, _PLAN):
             slots = getattr(self, stage)
             block = functools.partial(
                 conv_bn_act, conv=slots[cs], bn=slots[bs], pool=pool,
                 train=train, bn_mask=bn_mask,
                 band_min_voxels=self.band_min_voxels)
-            if wrap and _remat_worth_it(x.shape, slots[cs].out_channels):
-                # the update of the running statistics stays in the
-                # forward: the recompute skips it (`_remat_contexts`)
-                x = checkpoint(block, x, use_reentrant=False,
-                               preserve_rng_state=False,
-                               context_fn=functools.partial(
-                                   _remat_contexts, batchnorm.sync_group()))
-            else:
-                x = block(x)
+            with tracing.span(name):
+                if wrap and _remat_worth_it(x.shape, slots[cs].out_channels):
+                    # the update of the running statistics stays in the
+                    # forward: the recompute skips it (`_remat_contexts`)
+                    x = checkpoint(block, x, use_reentrant=False,
+                                   preserve_rng_state=False,
+                                   context_fn=functools.partial(
+                                       _remat_contexts,
+                                       batchnorm.sync_group()))
+                else:
+                    x = block(x)
         return x
 
 

@@ -4,7 +4,8 @@ A copy of transmf_ad_tpu/train/engine.py. The reference wires ignite
 `Engine(step)` loops with event handlers for LR scheduling, epoch logging,
 validation, checkpointing and final test (reference:
 kfold_train_adversarial.py:138-252). An `Engine` runs a step function over
-a loader for N epochs and fires handlers on `Events`.
+a loader for N epochs and fires handlers on `Events`; the wait for each
+batch is a "feed" span of `utils/tracing.py`.
 """
 
 from __future__ import annotations
@@ -13,6 +14,10 @@ import enum
 import time
 from types import SimpleNamespace
 from typing import Callable, Dict, List
+
+from ..utils import tracing
+
+_END = object()
 
 
 class Events(enum.Enum):
@@ -73,7 +78,12 @@ class Engine:
             t0 = time.perf_counter()
             self.state.epoch_t0 = t0  # for handlers that time past a sync
             self._fire(Events.EPOCH_STARTED)
-            for batch in loader:
+            batches = iter(loader)
+            while True:
+                with tracing.span("feed"):  # the wait for the next batch
+                    batch = next(batches, _END)
+                if batch is _END:
+                    break
                 self.state.iteration += 1
                 self.state.output = self.step_fn(self, batch)
                 self._fire(Events.ITERATION_COMPLETED)

@@ -4,7 +4,9 @@ Port of transmf_ad_tpu/train/steps.py::make_train_step. The JAX step is
 one jitted program; here the same work runs eagerly on the model's device:
 dequantize and augment the batch, forward with BatchNorm statistic updates
 and dropout, the triple loss (CE + the mean of the two discriminator CEs,
-from masked sums), backward, the optimizer step and the scheduler step.
+from masked sums), backward, the optimizer step and the scheduler step,
+each inside a span of `utils/tracing.py` ("step" around "prep",
+"augment", "forward", "loss", "backward", "grad_reduce", "optimizer").
 `make_eval_step` is the port of its eval step: the deterministic forward,
 the per-sample cross-entropy and the masked metric accumulation.
 
@@ -46,6 +48,7 @@ from ..nn.losses import adversarial_loss, cross_entropy
 from ..parallel.distributed import collective_flat, psum
 from ..parallel.tensor import reduce_partial_grads
 from ..serving import resolve_dtype
+from ..utils import tracing
 from .metrics import MetricState
 from .optim import build_optimizer
 
@@ -83,21 +86,35 @@ def dequantize_input(v: torch.Tensor) -> torch.Tensor:
     return v
 
 
+def _device_volumes(batch, modalities: Sequence[str], device):
+    """The batch's volumes on `device`, dequantized."""
+    return {k: dequantize_input(torch.as_tensor(batch[k]).to(device))
+            for k in modalities}
+
+
+def _augmented(vols, modalities: Sequence[str], aug_cfg: AugmentConfig,
+               generator):
+    """One augmentation draw per sample, shared by its modalities."""
+    n = vols[modalities[0]].shape[0]
+    samples = [augment({k: v[i] for k, v in vols.items()}, params, aug_cfg)
+               for i, params in enumerate(draw_params(generator, aug_cfg, n))]
+    return {k: torch.stack([s[k] for s in samples]) for k in modalities}
+
+
+def _model_inputs(vols, modalities: Sequence[str], dtype):
+    """Cast to the compute dtype and add the channel axis:
+    (B, X, Y, Z) -> (B, X, Y, Z, 1)."""
+    return [vols[k].to(dtype)[..., None] for k in modalities]
+
+
 def _prep_inputs(batch, modalities: Sequence[str],
                  aug_cfg: Optional[AugmentConfig], generator, device, dtype):
     """Dequantize, augment (one draw per sample, shared by its modalities),
-    cast to the compute dtype and add the channel axis:
-    (B, X, Y, Z) -> (B, X, Y, Z, 1)."""
-    vols = {k: dequantize_input(torch.as_tensor(batch[k]).to(device))
-            for k in modalities}
+    cast to the compute dtype and add the channel axis."""
+    vols = _device_volumes(batch, modalities, device)
     if aug_cfg is not None:
-        n = vols[modalities[0]].shape[0]
-        samples = [augment({k: v[i] for k, v in vols.items()}, params,
-                           aug_cfg)
-                   for i, params in enumerate(draw_params(generator, aug_cfg,
-                                                          n))]
-        vols = {k: torch.stack([s[k] for s in samples]) for k in modalities}
-    return [vols[k].to(dtype)[..., None] for k in modalities]
+        vols = _augmented(vols, modalities, aug_cfg, generator)
+    return _model_inputs(vols, modalities, dtype)
 
 
 def _ce_sums(logits, labels, weights=None, mask=None):
@@ -150,41 +167,53 @@ def make_train_step(modalities: Sequence[str] = ("MRI", "PET"),
     modalities = tuple(modalities)
 
     def step(state: TrainState, batch) -> dict:
+        with tracing.span("step", state.step):
+            return _step(state, batch)
+
+    def _step(state, batch):
         model = state.model
         device = next(model.parameters()).device
-        inputs = _prep_inputs(batch, modalities, aug_cfg, state.generator,
-                              device, state.dtype)
-        labels = torch.as_tensor(batch["label"]).to(device).long()
-        mask = batch.get("mask")
-        if mask is not None:
-            mask = torch.as_tensor(mask, dtype=torch.float32).to(device)
+        with tracing.span("prep"):
+            vols = _device_volumes(batch, modalities, device)
+            labels = torch.as_tensor(batch["label"]).to(device).long()
+            mask = batch.get("mask")
+            if mask is not None:
+                mask = torch.as_tensor(mask, dtype=torch.float32).to(device)
+        if aug_cfg is not None:
+            with tracing.span("augment"):
+                vols = _augmented(vols, modalities, aug_cfg, state.generator)
         bn_mask = mask if mask_bn else None
 
-        with batchnorm.synced(group):
-            out = model(*inputs, train=True, bn_mask=bn_mask,
-                        generator=state.generator)
-        logits = out[0] if adversarial else out
-        ce_n, ce_d = psum(torch.stack(_ce_sums(logits, labels, class_weights,
-                                               mask)), group)
-        ce = ce_n / ce_d
-        if adversarial:
-            _, d_mri, d_pet = out
-            ad = adversarial_loss(d_mri, d_pet, mask, group)
-            loss = ce + ad
-            aux = {"logits": logits, "d_mri": d_mri, "d_pet": d_pet,
-                   "ce_loss": ce, "ad_loss": ad}
-        else:
-            loss = ce
-            aux = {"logits": logits, "ce_loss": loss,
-                   "ad_loss": torch.zeros((), device=device)}
+        with tracing.span("forward"), batchnorm.synced(group):
+            out = model(*_model_inputs(vols, modalities, state.dtype),
+                        train=True, bn_mask=bn_mask, generator=state.generator)
+        with tracing.span("loss"):
+            logits = out[0] if adversarial else out
+            ce_n, ce_d = psum(torch.stack(_ce_sums(logits, labels,
+                                                   class_weights, mask)),
+                              group)
+            ce = ce_n / ce_d
+            if adversarial:
+                _, d_mri, d_pet = out
+                ad = adversarial_loss(d_mri, d_pet, mask, group)
+                loss = ce + ad
+                aux = {"logits": logits, "d_mri": d_mri, "d_pet": d_pet,
+                       "ce_loss": ce, "ad_loss": ad}
+            else:
+                loss = ce
+                aux = {"logits": logits, "ce_loss": loss,
+                       "ad_loss": torch.zeros((), device=device)}
 
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        reduce_partial_grads(model)
-        if group is not None:
-            _pmean_grads(model.parameters(), group)
-        state.optimizer.step()
-        state.scheduler.step()
+        with tracing.span("backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with tracing.span("grad_reduce"):
+            reduce_partial_grads(model)
+            if group is not None:
+                _pmean_grads(model.parameters(), group)
+        with tracing.span("optimizer"):
+            state.optimizer.step()
+            state.scheduler.step()
         state.step += 1
         aux = {k: v.detach() for k, v in aux.items()}
         aux["loss"] = loss.detach()

@@ -45,8 +45,10 @@ resumes at another with the same data size.
 Two switches of the JAX config (`TrainerConfig`): `profile_dir` opens a
 `torch.profiler` window (CPU and CUDA activities) at global iteration
 `profile_steps[0]` and closes it at `profile_steps[1]`, after a device
-sync, writing a Chrome trace into `profile_dir` (rank 0 only); a window
-still open when `fit` returns is closed and written then. `debug_nans`
+sync, writing a Chrome trace into `profile_dir` (rank 0 only) in which the
+spans of `utils/tracing.py` (iteration, step and its phases, the encoder
+blocks) nest the ops; a window still open when `fit` returns is closed and
+written then. `debug_nans`
 runs `fit` under `torch.autograd.detect_anomaly(check_nan=True)` and checks
 the loss and every gradient after each step: the first NaN or inf raises
 `FloatingPointError` naming the iteration. Only this switch syncs each
@@ -75,6 +77,7 @@ from ..parallel import (NullLogger, fetch_global, full_optimizer_state,
                         load_state_dict, make_hybrid_mesh, padded_batch,
                         place_global, process_count, shard_of, shard_state)
 from ..serving import resolve_dtype as _resolve_auto
+from ..utils import tracing
 from ..utils.logging import Logger
 from ..utils.torch_import import import_torch_checkpoint
 from ..utils.weights import init_weights
@@ -527,7 +530,7 @@ class Trainer:
             ragged = (n_real is not None
                       and n_real < batch["label"].shape[0] * self.world)
             step = train_step_masked if ragged else train_step
-            with window.iteration(it):
+            with tracing.span("iteration", it):
                 if cfg.debug_nans:
                     aux = _checked_step(step, self.state, batch, it)
                 else:
@@ -644,10 +647,12 @@ class Trainer:
 class _ProfileWindow:
     """`TrainerConfig.profile_dir`'s window: a `torch.profiler.profile`
     (CPU, and CUDA on a card) from global iteration `profile_steps[0]` up
-    to `profile_steps[1]`, each iteration inside a record_function range
-    "iteration <n>"; on closing, after a device sync, a Chrome trace
-    `trace_<start>_<stop>.json` in `profile_dir`. Only the primary rank
-    profiles; without `profile_dir` every method returns at once."""
+    to `profile_steps[1]`, with the port's tracer on (`utils/tracing.py`),
+    so each iteration is a record_function range "iteration <n>" around the
+    step's spans; on closing, after a device sync, the tracer goes off and
+    forgets its spans, and a Chrome trace `trace_<start>_<stop>.json` is
+    written into `profile_dir`. Only the primary rank profiles; without
+    `profile_dir` every method returns at once."""
 
     def __init__(self, cfg, device: torch.device, primary: bool):
         self.dir = cfg.profile_dir if primary else None
@@ -664,13 +669,9 @@ class _ProfileWindow:
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             self.prof = torch.profiler.profile(activities=acts)
             self.prof.start()
+            tracing.enable()
         elif iteration == self.stop:
             self.close()
-
-    def iteration(self, iteration: int):
-        if self.prof is None:
-            return contextlib.nullcontext()
-        return torch.profiler.record_function(f"iteration {iteration}")
 
     def close(self):
         """Sync the device, stop the window and write its trace."""
@@ -678,6 +679,8 @@ class _ProfileWindow:
             return
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        tracing.disable()
+        tracing.drain()  # the trace holds the spans as ranges
         self.prof.stop()
         os.makedirs(self.dir, exist_ok=True)
         self.prof.export_chrome_trace(os.path.join(
