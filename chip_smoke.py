@@ -49,7 +49,10 @@ before the final line:
             of token count and width; its times are the card's alone
             (queued behind a spin: `_queued_ms`), beside the launch floor
             (an empty kernel) by the same method and by events around the
-            call
+            call. K13, the train step's augmentation (no TPU kernel: the
+            JAX package's is XLA), at the cells' (6,182,218,182) x 2 on
+            draws of every kind ("smem"), bit-identical over two calls,
+            and at a plane over the shared-memory limit ("global")
 4. serving  full-width ModelAd (dim 128, depth 3, 4 heads x 32, mlp 512) in
             bfloat16, random weights and BN statistics from a seeded
             torch.Generator, answers 6 batch-8 requests of 91x109x91
@@ -62,8 +65,8 @@ before the final line:
             91x109x91, bfloat16 compute with float32 master weights,
             augmentation on, head dropout 0.5 from a CUDA torch.Generator,
             Adam 1e-4: 3 warm-up and 5 timed steps; losses finite,
-            parameters and running statistics move, and every train-path
-            kernel's launch count rises
+            parameters and running statistics move, every train-path
+            kernel's launch count rises, and K13 launches once a step
 7. train check  one SGD (lr 1, no momentum) step with the same weights on the
             card (float32, TF32 off) and on the CPU plain path, at full width,
             batch 4, 35x37x33, no augmentation or dropout: the losses, every
@@ -156,11 +159,13 @@ before the final line:
             1 epochs, and `cli/train_adversarial.py` (the hold-out 60/20/20,
             ModelAd at heads 8, one epoch). Held: each result finite, its
             log complete, and the exact launches its splits give, every
-            other kernel at 0: ModelSingle K5 and K6 once a train step, K3
+            other kernel at 0: K13 once a train step but in ADVIT, which
+            does not augment; ModelSingle K5 and K6 once a train step, K3
             once an eval batch, K4 4 times a forward, K7 4 times a step;
             ADVIT K2 12 times a forward ("mma" at (24,65,65,64)) and no
-            other; Mnet none; the hold-out as ModelAd (K2 "mma" at head dim
-            16, K4 8 times a forward, K7 8 times a step); then
+            other; Mnet no kernel of the model; the hold-out as ModelAd (K2
+            "mma" at head dim 16, K4 8 times a forward, K7 8 times a step);
+            then
             `cli/evaluate.py --model single --fold 0` against fold 0's
             logged test metrics; the eval forward of ModelSingle, ADVIT
             (128x128x79), Mnet and ModelAd at heads 8, card f32 against the
@@ -260,8 +265,9 @@ the six serving and train runs, the learning check, the two k-fold CLI
 runs of phase 14, the four CLI runs of phase 15, phase 16's bf16 runs,
 every rank of phase 17, phase 18's runs (a request of each loaded program
 at each batch, each sharded rank, the profiled fit) and every rank of
-phase 19 together, each counted from zero. Before it a `[time]` line gives the
-seconds each group of phases took. The last line is
+phase 19 together, each counted from zero (K13 too: a run that augments
+launches it once a train step, and it is held to that). Before it a
+`[time]` line gives the seconds each group of phases took. The last line is
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --only band_dw flash_fwd
@@ -296,6 +302,12 @@ BATCH, VOLUME = 8, (91, 109, 91)
 WARMUP, REQUESTS = 3, 6  # requests served; the first WARMUP are not timed
 TRAIN_WARMUP, TRAIN_STEPS = 3, 5  # train steps; the first 3 are not timed
 FULL_BATCH, FULL_VOLUME = 6, (182, 218, 182)  # the full-resolution phases
+# phase 3, K13: (flip, rotate, angle, zoom, factor, unused) uniforms giving,
+# under the default AugmentConfig, the identity, a flip, a zoom, a
+# rotation, all three, and a flip with a rotation of exactly 0
+AUGMENT_ROWS = [[0.9, 0.9, 0.5, 0.9, 0.5, 0.0], [0.1, 0.9, 0.5, 0.9, 0.5, 0.0],
+                [0.9, 0.9, 0.5, 0.1, 0.3, 0.0], [0.9, 0.1, 0.8, 0.9, 0.5, 0.0],
+                [0.1, 0.1, 0.1, 0.1, 0.9, 0.0], [0.1, 0.2, 0.5, 0.9, 0.5, 0.0]]
 FULL_WARMUP, FULL_REQUESTS = 1, 3
 FULL_TRAIN_WARMUP, FULL_TRAIN_STEPS = 2, 3
 # H100 SXM data sheet: HBM bytes/s; dense FLOP/s of the tensor cores in
@@ -370,14 +382,14 @@ RES_TRAIN_KERNELS = ("affine_act_pool", "stem_conv_stats", "stem_dw",
                      "affine_act_pool_bwd", "band_conv", "band_dw",
                      "flash_fwd", "flash_dq", "flash_dkv")
 ATTENTION_CALLS = 6  # per forward: depth 3, one per modality
-# the variant every launch of K1-K12 must take on the bfloat16 paths at the
-# models' widths: the tensor cores ("mma"), K4 / K7's 16-byte groups
-# ("vec") and K1's clusters
+# the variant every launch of K1-K13 must take on the bfloat16 paths at the
+# models' widths and volumes: the tensor cores ("mma"), K4 / K7's 16-byte
+# groups ("vec"), K1's clusters and K13's plane in shared memory
 FAST = {"attention_fwd": "mma", "band_conv": "mma", "band_dw": "mma",
         "flash_fwd": "mma", "flash_dq": "mma", "flash_dkv": "mma",
         "stem_conv": "mma", "stem_conv_stats": "mma", "stem_dw": "mma",
         "affine_act_pool": "vec", "affine_act_pool_bwd": "vec",
-        "token_pool": "cluster"}
+        "token_pool": "cluster", "augment": "smem"}
 
 
 def _median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1250,6 +1262,44 @@ def _kernel_cases(g):
                 band_conv.band_dw_reference,
                 dw_small(b, volume, cin, cout, with_ab), *dw_tol,
                 band_dw_ops, timed=False))
+    # K13: both modalities in one launch, on uniforms that give every kind
+    # of draw (`AUGMENT_ROWS`) under the default configuration
+    from transmf_ad_tpu_torch.data import transforms
+
+    def aug_in(b, volume):
+        def make(dt):
+            vols = [torch.rand(b, *volume, generator=g, device="cuda").to(dt)
+                    for _ in range(2)]
+            u = torch.tensor(AUGMENT_ROWS, device="cuda")
+            return (*vols, u[torch.arange(b, device="cuda") % len(u)])
+        return make
+
+    def aug(mri, pet, u):
+        out = transforms.augment_batch({"MRI": mri, "PET": pet}, u)
+        return out["MRI"], out["PET"]
+
+    def aug_plain(mri, pet, u):
+        out = transforms.augment_reference({"MRI": mri, "PET": pet}, u,
+                                           transforms.AugmentConfig())
+        return out["MRI"], out["PET"]
+
+    def aug_ops(mri, pet, u):  # the gather's 7 mixes of 3 operations
+        return 21 * 2 * mri.numel(), "f32"
+
+    # float32: on the card PyTorch divides by a Python scalar (the zoom)
+    # through its float32 reciprocal, so the plain version's source
+    # coordinates lie up to an ulp from K13's, which divides as the CPU does
+    # (1.5e-5 at 218 voxels, moving a value by as much times its step);
+    # tests/test_torch_augment.py holds K13 to the plain version on the
+    # CPU within 1e-5 and to its emulation bit for bit
+    aug_tol = [_scaled(0.0, 1e-4)] * 2, [_elem(BF16_RTOL, 0.0)] * 2
+    cases += [
+        Case("augment", f"({FULL_BATCH},{','.join(map(str, FULL_VOLUME))}) x2",
+             aug, aug_plain, aug_in(FULL_BATCH, FULL_VOLUME), *aug_tol,
+             aug_ops, repeat=True),
+        Case("augment", "(8,6,256,256) x2, a plane over the shared memory",
+             aug, aug_plain, aug_in(8, (6, 256, 256)), *aug_tol, aug_ops,
+             timed=False)]
     return cases
 
 
@@ -1303,11 +1353,9 @@ def launch_floor() -> dict:
 def check_kernels(results, only=()):
     """Phase 3. Fills `results` per kernel name and returns the bfloat16
     kernel time of every case by (name, label)."""
-    from transmf_ad_tpu_torch.ops import KERNELS
-
     g = torch.Generator(device="cuda").manual_seed(1)
     times = {}
-    by_name = {k.name: k for k in KERNELS}
+    by_name = {k.name: k for k in _kernels()}
     floor = launch_floor()
     print(f"[kernel] launch floor, an empty kernel: queued behind a spin "
           f"{floor['queued']:.4f} ms, events around the call "
@@ -1576,9 +1624,9 @@ def flash_cross_check(reference):
 
 
 def reset_counts():
-    """Set every launch count to 0, after checking that K1 launched no
-    "column" since the last reset: from phase 4 on, every K1 launch is at
-    the models' width, which the rule sends to "cluster"."""
+    """Set every launch count (K1-K13) to 0, after checking that K1
+    launched no "column" since the last reset: from phase 4 on, every K1
+    launch is at the models' width, which the rule sends to "cluster"."""
     from transmf_ad_tpu_torch.ops import TOKEN_POOL, reset_launch_counts
 
     if TOKEN_POOL.by_variant.get("column"):
@@ -1587,25 +1635,30 @@ def reset_counts():
     reset_launch_counts()
 
 
-def _launches():
+def _kernels():
+    """K1-K12, then K13, the train step's augmentation (no op, so not in
+    `ops.KERNELS`)."""
+    from transmf_ad_tpu_torch.data.transforms import AUGMENT
     from transmf_ad_tpu_torch.ops import KERNELS
 
-    return {k.name: k.launches for k in KERNELS}
+    return (*KERNELS, AUGMENT)
+
+
+def _launches():
+    return {k.name: k.launches for k in _kernels()}
 
 
 def _require_variants(tag, variants):
     """Every launch of each kernel in `variants` since the counts were reset
     was of the variant named there."""
-    from transmf_ad_tpu_torch.ops import KERNELS
-
-    for k in KERNELS:
+    for k in _kernels():
         want = variants.get(k.name)
         if want is not None and k.launches \
                 and k.by_variant != {want: k.launches}:
             raise AssertionError(
                 f"{tag}: {k.name} launched {k.by_variant} of {k.launches}, "
                 f"expected only \"{want}\"")
-    return {k.name: dict(k.by_variant) for k in KERNELS if k.by_variant}
+    return {k.name: dict(k.by_variant) for k in _kernels() if k.by_variant}
 
 
 def _snapshot(model):
@@ -1618,8 +1671,9 @@ def train(card, tag="train", batch_size=BATCH, volume=VOLUME,
           model_name="ad", exact=None, variants=FAST):
     """The train step at full width: ms/step, volumes/s, every loss, the
     launch counts of this run (counted from zero) and its peak memory.
-    `exact`: launch counts per step that must hold exactly. `variants`: the
-    one variant each of these kernels may have launched."""
+    `exact`: launch counts per step that must hold exactly, besides K13's
+    one. `variants`: the one variant each of these kernels may have
+    launched."""
     from transmf_ad_tpu_torch.data.transforms import AugmentConfig
     from transmf_ad_tpu_torch.models import ADVERSARIAL, build_model
     from transmf_ad_tpu_torch.train import create_state, make_train_step
@@ -1655,7 +1709,8 @@ def train(card, tag="train", batch_size=BATCH, volume=VOLUME,
         losses.append(float(aux["loss"]))
     launches = _launches()
     _require_launches(tag, launches, kernels,
-                      {n: c * len(batches) for n, c in (exact or {}).items()})
+                      {n: c * len(batches)
+                       for n, c in {"augment": 1, **(exact or {})}.items()})
     took = _require_variants(tag, variants)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{tag}: non-finite losses {losses}")
@@ -2303,7 +2358,7 @@ def _kfold_run(tag, root, ckpt, name, n_records, model, folds=""):
              "stem_conv": 2 * evals,
              "token_pool": forwards if transformer else 0,
              "attention_fwd": ATTENTION_CALLS * forwards if transformer
-             else 0}
+             else 0, "augment": steps}
     kernels = [k for k in TRAIN_KERNELS + ("stem_conv",)
                if transformer or k not in ("token_pool", "attention_fwd")]
     _require_launches(tag, launches, kernels, exact)
@@ -2597,8 +2652,6 @@ def _zoo_run(tag, main, flags, exact, log_dir):
     launch in its rule's variant; the result's losses and accuracies
     finite and the run's log complete. Returns (result, launches,
     seconds)."""
-    from transmf_ad_tpu_torch.ops import KERNELS
-
     reset_counts()
     t0 = time.perf_counter()
     res = main(flags)
@@ -2606,7 +2659,7 @@ def _zoo_run(tag, main, flags, exact, log_dir):
     launches = _launches()
     took = _require_variants(tag, FAST)
     _require_launches(tag, launches, [n for n, c in exact.items() if c],
-                      {k.name: exact.get(k.name, 0) for k in KERNELS})
+                      {n: exact.get(n, 0) for n in launches})
     folds = np.array(res["folds"] if isinstance(res, dict) else [res])
     if folds.shape != (1, 6) or not np.isfinite(folds[:, :2]).all():
         raise AssertionError(f"{tag}: result {res}")
@@ -2672,7 +2725,7 @@ def zoo_check(card):
             tag, kfold_train_single.main, flags("single"),
             {"stem_conv_stats": steps, "stem_dw": steps, "stem_conv": evals,
              "affine_act_pool": 4 * (steps + evals),
-             "affine_act_pool_bwd": 4 * steps},
+             "affine_act_pool_bwd": 4 * steps, "augment": steps},
             os.path.join(ckpt, "single", "0"))
         _evaluate_check(roots[VOLUME], ckpt, "single", single["folds"][0],
                         model="single")
@@ -2687,7 +2740,7 @@ def zoo_check(card):
         laps.append(("ADVIT", time.perf_counter()))
         tag = "k-fold CLI, Mnet"
         _, runs[tag], seconds[tag] = _zoo_run(
-            tag, kfold_train_Mnet.main, flags("mnet"), {},
+            tag, kfold_train_Mnet.main, flags("mnet"), {"augment": steps},
             os.path.join(ckpt, "mnet", "0"))
         laps.append(("Mnet", time.perf_counter()))
 
@@ -2702,7 +2755,7 @@ def zoo_check(card):
              "stem_conv": 2 * evals, "token_pool": forwards,
              "attention_fwd": ATTENTION_CALLS * forwards,
              "affine_act_pool": 8 * forwards,
-             "affine_act_pool_bwd": 8 * steps},
+             "affine_act_pool_bwd": 8 * steps, "augment": steps},
             os.path.join(ckpt, "holdout"))
         laps.append(("hold-out", time.perf_counter()))
     reset_counts()
@@ -3130,7 +3183,7 @@ def _dp_step_check(card, tmp, also=()):
     launches = {}
     for r, res in enumerate(ranks):
         want = {"stem_conv_stats": 2, "stem_dw": 2, "token_pool": 1,
-                "attention_fwd": ATTENTION_CALLS}
+                "attention_fwd": ATTENTION_CALLS, "augment": 0}
         miss = {k: res["launches"][k] for k in want
                 if res["launches"][k] != want[k]}
         if miss or not (res["launches"]["affine_act_pool"]
@@ -3231,9 +3284,15 @@ def dp_check(card):
                     "best_label_net_model" in w for w in wrote):
                 raise AssertionError(f"data parallel {name}: rank 0 wrote "
                                      f"{wrote}")
+            steps = _fold0_counts(2 * KFOLD_PER_CLASS, drop_last=True)[0]
             for r, got in enumerate(ranks):
                 launches[f"data parallel CLI {name} rank {r}"] = \
                     got["launches"]
+                if got["launches"]["augment"] != steps:
+                    raise AssertionError(
+                        f"data parallel {name}: rank {r} launched K13 "
+                        f"{got['launches']['augment']} times in {steps} "
+                        "train steps")
                 ev = got["evaluate"]
                 counts = all((x == y) or (np.isnan(x) and np.isnan(y))
                              for x, y in zip(ev[1:5], fold0[1:5]))
@@ -3500,6 +3559,8 @@ def _profile_check(card, tmp):
     trainer.fit(train, val)
     launches = _launches()
     _require_variants("profiled fit", FAST)
+    _require_launches("profiled fit", launches, (),
+                      {"augment": PROFILE_EPOCHS * k})
     (path,) = glob.glob(os.path.join(out, "*.json"))
     with open(path) as f:
         events = json.load(f)["traceEvents"]
@@ -3899,10 +3960,12 @@ def model_axis_check(card):
                 "affine_act_pool_bwd", "attention_fwd", "stem_conv_stats",
                 "stem_dw", "token_pool")
         _require_launches(f"model axis rank {r} f32", res["f32"]["launches"],
-                          want, {"attention_fwd": ATTENTION_CALLS})
+                          want, {"attention_fwd": ATTENTION_CALLS,
+                                 "augment": 0})
         _require_launches(f"model axis rank {r} bf16",
                           res["bf16"]["launches"], want,
-                          {"attention_fwd": ATTENTION_CALLS * MP_STEPS})
+                          {"attention_fwd": ATTENTION_CALLS * MP_STEPS,
+                           "augment": 0})
         _require_launches(f"model axis rank {r} request",
                           res["res"]["launches"], ("flash_fwd",),
                           {"flash_fwd": ATTENTION_CALLS, "attention_fwd": 0})
@@ -3996,7 +4059,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from transmf_ad_tpu_torch import _build
-    from transmf_ad_tpu_torch.ops import KERNELS, reset_launch_counts
+    from transmf_ad_tpu_torch.ops import reset_launch_counts
 
     laps = [("start", time.perf_counter())]
 
@@ -4108,7 +4171,7 @@ def main(argv=None) -> int:
     kernels = [{"name": k.name, "route": "cuda", "source": k.source,
                 "replaces": k.replaces,
                 "launches": sum(run[k.name] for run in runs.values()),
-                **results[k.name]} for k in KERNELS]
+                **results[k.name]} for k in _kernels()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -211,7 +211,7 @@ if args.serving:
 
 # --- device time by call site ----------------------------------------------
 # spans that only hold others: a site is named by the two innermost of the
-# rest ("encoder conv2.3 / pool", "augment / sync", "fc_cls")
+# rest ("encoder conv2.3 / pool", "prep", "fc_cls")
 CONTAINERS = ("iteration", "step", "forward")
 
 

@@ -10,8 +10,8 @@ train-mode logits, every parameter gradient and every updated running
 statistic within 1e-4 of max(1, its largest magnitude) plus 3 times the
 spread of JAX runs on perturbed inputs. Batch 4: with 2 samples every
 BatchNorm1d gradient of the head is O(eps / var), a difference of rounding.
-The path launches no kernel on the card: `chip_smoke.py` phase 15 requires
-zero launches there.
+The model launches no kernel on the card: `chip_smoke.py` phase 15 requires
+zero launches there but K13's, the train step's augmentation.
 """
 
 import jax

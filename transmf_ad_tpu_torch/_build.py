@@ -15,15 +15,18 @@ its launches, which rises by one per launch and nowhere else. A kernel with
 more than one variant (K2, K6, K8-K12: tensor cores or CUDA cores, by dtype
 and shape) also counts its launches per variant.
 
-A kernel is reached only through a registered op in the `transmf`
-namespace (`define_op`): the dispatcher runs the op's CUDA implementation
-(checks, variant, `Kernel.launch`) for CUDA tensors and its plain PyTorch
-version for CPU tensors, and FakeTensors (`torch.export`, `opcheck`,
-`torch.compile`) see only its fake implementation, which launches and
-counts nothing. A traced or exported program therefore keeps the op in its
+A kernel of the model (K1-K12) is reached only through a registered op in
+the `transmf` namespace (`define_op`): the dispatcher runs the op's CUDA
+implementation (checks, variant, `Kernel.launch`) for CUDA tensors and its
+plain PyTorch version for CPU tensors, and FakeTensors (`torch.export`,
+`opcheck`, `torch.compile`) see only its fake implementation, which
+launches and counts nothing. A traced or exported program therefore keeps the op in its
 graph, and its launches count as eager calls do. While tracing is on
 (`utils/tracing.py`), each op's CPU and CUDA implementations count their
-calls and host time.
+calls and host time. K13, the train step's augmentation, is no op: its
+wrapper (`data/transforms.py::augment_batch`) launches it for CUDA tensors
+and runs the plain version for CPU tensors itself; the train step is never
+exported.
 """
 
 from __future__ import annotations
@@ -130,7 +133,8 @@ def library() -> ctypes.CDLL:
 
 # ctypes argument kinds; every pointer and the stream are c_void_p, so that
 # ctypes never passes them as 32-bit ints
-PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+PTR, INT, FLOAT, DOUBLE = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                           ctypes.c_double)
 
 
 @dataclasses.dataclass

@@ -14,17 +14,36 @@ y and z zoom passes (the flip folded into the x matrix) and the rotation as
 a Paeth 3-shear, each pass a matrix of linear-interpolation weights with
 border clamping. The same parameters give the JAX package's result up to
 float32 rounding; the random draws differ from `jax.random`'s bits.
+
+A batch is augmented by `augment_batch` from the step's (B, 6) uniforms,
+one draw per sample shared by its modalities. On CUDA tensors that is one
+launch of kernel K13 (csrc/augment.cu), which decodes the uniforms on the
+device, so the host never reads them; on CPU tensors it is the plain
+version, `augment_reference`: `decode` on the host (the "sync" span and
+the `host_syncs` counter of `utils/tracing.py`), then `augment` a sample at
+a time.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from .._build import DOUBLE, INT, PTR, Kernel, check_cuda, library
 from ..utils import tracing
+
+AUGMENT = Kernel(
+    name="augment", entry="transmf_augment",
+    argtypes=(PTR,) * 4 + (INT, PTR, INT, INT, INT, INT) + (DOUBLE,) * 7
+    + (INT, PTR, INT),
+    source="transmf_ad_tpu_torch/csrc/augment.cu",
+    replaces="none: transmf_ad_tpu/data/transforms.py:172 (XLA)")
+MAX_MODALITIES = 2  # the C entry's input and output slots: MRI and PET
 
 
 @dataclass(frozen=True)
@@ -44,12 +63,23 @@ def scale_intensity(vol: torch.Tensor) -> torch.Tensor:
     return torch.where(hi > lo, (vol - lo) / (hi - lo), torch.zeros_like(vol))
 
 
+def draw_uniforms(generator: torch.Generator, n: int) -> torch.Tensor:
+    """The (n, 6) float32 uniforms of n draws, on the generator's device
+    (columns: flip, rotate, angle, zoom, factor, unused)."""
+    return torch.rand(n, 6, generator=generator, device=generator.device)
+
+
 def draw_params(generator: torch.Generator, cfg: AugmentConfig, n: int = 1):
     """n draws of (flip, angle, zoom) as Python values, one per sample and
-    shared by its modalities. One read of the generator's device, which
-    waits for the work queued before it: the "sync" span and the
-    `host_syncs` counter of `utils/tracing.py`."""
-    u = torch.rand(n, 6, generator=generator, device=generator.device)
+    shared by its modalities (`decode` of `draw_uniforms`)."""
+    return decode(draw_uniforms(generator, n), cfg)
+
+
+def decode(u: torch.Tensor, cfg: AugmentConfig):
+    """The draws (flip, angle, zoom) of the (n, 6) uniforms `u`, in Python
+    floats (double precision). One read of u's device, which waits for the
+    work queued before it: the "sync" span and the `host_syncs` counter of
+    `utils/tracing.py`."""
     with tracing.span("sync"):
         u = u.tolist()
     tracing.count("host_syncs")
@@ -128,6 +158,82 @@ def augment(vols, params, cfg: AugmentConfig = AugmentConfig()):
         return dict(vols)
     return {k: _affine_resample(v, *params, cfg.flip_axis)
             for k, v in vols.items()}
+
+
+def augment_reference(vols, u: torch.Tensor, cfg: AugmentConfig):
+    """The plain version of `augment_batch`: `decode` on the host, then
+    `augment` one sample at a time, stacked."""
+    samples = [augment({k: v[i] for k, v in vols.items()}, params, cfg)
+               for i, params in enumerate(decode(u, cfg))]
+    return {k: torch.stack([s[k] for s in samples]) for k in vols}
+
+
+@functools.cache
+def scratch_floats(y: int, z: int) -> int:
+    """The device scratch a K13 block takes for Y x Z planes, in float32
+    words; 0 where the shape takes the "smem" variant. The kernel library
+    owns the rule (`smem_fits` in csrc/augment.cu)."""
+    fn = library().transmf_augment_scratch_floats
+    fn.argtypes, fn.restype = [INT, INT], ctypes.c_longlong
+    return fn(y, z)
+
+
+def variant(shape) -> str:
+    """The K13 variant a launch takes for (B, X, Y, Z) volumes: "smem", a
+    float32 Y x Z plane and the taps in shared memory, where they fit and
+    no line is longer than a warp holds in registers; "global", the same
+    stages in device scratch, otherwise."""
+    return "global" if scratch_floats(*shape[-2:]) else "smem"
+
+
+def _augment_launch(vols, u: torch.Tensor, cfg: AugmentConfig):
+    """K13 on CUDA tensors: one launch for every sample and modality."""
+    names = list(vols)
+    ins = [vols[k].contiguous() for k in names]
+    dtype = check_cuda("augment", *ins)
+    x = ins[0]
+    if x.dim() != 4 or any(t.shape != x.shape for t in ins):
+        raise ValueError("augment: expected same-shaped (B, X, Y, Z) "
+                         f"volumes, got {[tuple(t.shape) for t in ins]}")
+    if len(ins) > MAX_MODALITIES:
+        raise ValueError(f"augment: {len(ins)} modalities, at most "
+                         f"{MAX_MODALITIES}")
+    b, _, y, z = x.shape
+    u = u.to(device=x.device, dtype=torch.float32).contiguous()
+    if tuple(u.shape) != (b, 6):
+        raise ValueError(f"augment: uniforms {tuple(u.shape)}, expected "
+                         f"({b}, 6)")
+    outs = [torch.empty_like(t) for t in ins]
+    per_block = scratch_floats(y, z)
+    scratch, blocks = None, 0
+    if per_block:
+        blocks = torch.cuda.get_device_properties(x.device) \
+            .multi_processor_count
+        scratch = torch.empty(blocks * per_block, dtype=torch.float32,
+                              device=x.device)
+    pad = [None] * (MAX_MODALITIES - len(ins))
+    lo, hi = -cfg.rotate_range_x, cfg.rotate_range_x
+    AUGMENT.launch(
+        x.device, *[t.data_ptr() for t in ins], *pad,
+        *[t.data_ptr() for t in outs], *pad, len(ins), u.data_ptr(),
+        *x.shape, cfg.flip_prob, cfg.rotate_prob, lo, hi, cfg.zoom_prob,
+        cfg.min_zoom, cfg.max_zoom, dtype,
+        None if scratch is None else scratch.data_ptr(), blocks,
+        variant="global" if per_block else "smem")
+    tracing.count("augment.kernel")
+    return dict(zip(names, outs))
+
+
+def augment_batch(vols, u: torch.Tensor, cfg: AugmentConfig = AugmentConfig()):
+    """Augment a dict of same-shaped (B, X, Y, Z) volume batches by the
+    draws of the (B, 6) uniforms `u` (`draw_uniforms`), one draw per sample
+    shared by its modalities. CPU tensors: the plain version,
+    `augment_reference`; any other device: kernel K13, which reads `u` on
+    the device (no host sync) and returns new tensors, or raises. An
+    identity draw leaves its sample's bits untouched."""
+    if next(iter(vols.values())).device.type == "cpu":
+        return augment_reference(vols, u, cfg)
+    return _augment_launch(vols, u, cfg)
 
 
 def spatial_pad(vol, target_shape):

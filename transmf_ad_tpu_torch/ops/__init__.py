@@ -28,7 +28,12 @@ KERNELS = (TOKEN_POOL, ATTENTION, STEM_CONV, AFFINE_ACT_POOL, STEM_CONV_STATS,
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
+    """Set the launch counts of K1-K12 and of K13, the train step's
+    augmentation (`data/transforms.py`; no op, so not in KERNELS), to 0.
+    K13 is imported here, not with the ops: serving loads no data module."""
+    from ..data.transforms import AUGMENT
+
+    for k in (*KERNELS, AUGMENT):
         k.reset()
 
 

@@ -42,7 +42,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from ..data.transforms import AugmentConfig, augment, draw_params
+from ..data.transforms import AugmentConfig, augment_batch, draw_uniforms
 from ..nn import batchnorm
 from ..nn.losses import adversarial_loss, cross_entropy
 from ..parallel.distributed import collective_flat, psum
@@ -94,11 +94,12 @@ def _device_volumes(batch, modalities: Sequence[str], device):
 
 def _augmented(vols, modalities: Sequence[str], aug_cfg: AugmentConfig,
                generator):
-    """One augmentation draw per sample, shared by its modalities."""
-    n = vols[modalities[0]].shape[0]
-    samples = [augment({k: v[i] for k, v in vols.items()}, params, aug_cfg)
-               for i, params in enumerate(draw_params(generator, aug_cfg, n))]
-    return {k: torch.stack([s[k] for s in samples]) for k in modalities}
+    """One augmentation draw per sample, shared by its modalities: the
+    step's (B, 6) uniforms from `generator`, then `augment_batch` (on the
+    card one launch of K13, which reads them there: the step has no host
+    sync)."""
+    u = draw_uniforms(generator, vols[modalities[0]].shape[0])
+    return augment_batch({k: vols[k] for k in modalities}, u, aug_cfg)
 
 
 def _model_inputs(vols, modalities: Sequence[str], dtype):
