@@ -7,6 +7,9 @@ its own here, found by the name `BENCHMARK.json` gives it:
 `configs/<config>.json`, `traffic/<mix>.json` (whose "kind" names the
 module, `kinds/<kind>.py`), `metrics/<metric>.py` and
 `limits/<cell>.json` (the correctness limits and the readings they were
-set from). `reference/` is the plain float32 model, `counts/` the
-operations and bytes from shapes, `peaks.py` the card's published peaks.
+set from). `reference/` is the plain float32 model (one module a
+configuration's `"reference"`), `counts/` the operations and bytes from
+shapes (a reference's model FLOPs in `counts/models/<reference>.py`, a
+`transmf::` op's least work in `counts/kernels.py` or
+`counts/ops/<op>.py`), `peaks.py` the card's published peaks.
 """

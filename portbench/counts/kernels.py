@@ -6,10 +6,17 @@ operations are held to ("mma": the tensor cores' rate for bfloat16 inputs;
 the CUDA cores' float32 rate otherwise). The least time is the larger of
 bytes over the HBM rate and operations over that peak. The arithmetic is
 that of `chip_smoke.py`'s `_bound` and its cases' `work` functions.
+
+The 13 ops in `OPS` are counted here; any other op is counted by
+`ops/<op>.py`, whose `outputs(shapes)` and `ops(shapes)` keep the contracts
+of `_outputs` and `_ops`. An op with neither has no count.
 """
 
 from __future__ import annotations
 
+import functools
+import importlib
+import importlib.util
 import math
 
 from .. import peaks
@@ -88,17 +95,34 @@ OPS = ("token_pool", "attention", "flash_fwd", "flash_dq", "flash_dkv",
        "affine_act_pool_bwd", "band_conv", "band_conv_stats", "band_dw")
 
 
-def least_time_s(op: str, shapes, dtypes) -> tuple[float, str]:
+def count_of(op: str):
+    """(outputs, ops) of transmf::<op>, each a function of the recorded
+    shapes, or None where nothing counts the op."""
+    if op in OPS:
+        return functools.partial(_outputs, op), functools.partial(_ops, op)
+    name = f"{__package__}.ops.{op}"
+    if importlib.util.find_spec(name) is None:
+        return None
+    mod = importlib.import_module(name)
+    return mod.outputs, mod.ops
+
+
+def least_time_s(op: str, shapes, dtypes) -> tuple[float, str] | None:
     """(seconds, 'bytes' or 'operations') of one call of transmf::<op>
     with the recorded input `shapes` and `dtypes` (one entry per schema
-    argument; an absent optional tensor or a scalar has an empty shape)."""
+    argument; an absent optional tensor or a scalar has an empty shape),
+    or None where the op has no count."""
+    count = count_of(op)
+    if count is None:
+        return None
+    outputs, operations = count
     tensors = [(sh, dt) for sh, dt in zip(shapes, dtypes)
                if sh and dt in ITEMSIZE]
     first = tensors[0][1]
     nbytes = sum(_numel(sh) * ITEMSIZE[dt] for sh, dt in tensors)
-    for shape, dt in _outputs(op, [sh for sh, _ in zip(shapes, dtypes)]):
+    for shape, dt in outputs([sh for sh, _ in zip(shapes, dtypes)]):
         nbytes += _numel(shape) * ITEMSIZE[dt or first]
-    ops, kind = _ops(op, shapes)
+    ops, kind = operations(shapes)
     peak = (peaks.FLOPS[COMPUTE[first]] if kind == "mma"
             else peaks.FLOPS["float32"])
     by_bytes, by_ops = nbytes / peaks.HBM_BYTES_PER_S, ops / peak

@@ -10,6 +10,9 @@ counted."""
 
 from __future__ import annotations
 
+import importlib
+import importlib.util
+
 # sNet's convs: (cin, cout as multiples of dim / 4 (0: one channel),
 # kernel, whether a 2^3 pool follows)
 SNET = ((0, 1, 3, True), (1, 1, 3, False), (1, 2, 3, True), (2, 2, 3, False),
@@ -41,24 +44,18 @@ def transformer_layer(n: int, m: int, dim: int, heads: int, dim_head: int,
 
 def forward_per_pair(cfg: dict, volume) -> dict:
     """{'conv': ..., 'stem': ..., 'rest': ...} forward FLOPs of one MRI +
-    PET pair; 'stem' is the two first convs (part of 'conv')."""
-    m = cfg["model"]
-    dim = m["dim"]
-    convs, grid = snet(dim, volume)
-    n = grid[0] * grid[1] * grid[2]
-    args = (dim, m["heads"], m["dim_head"], m["mlp_dim"])
-    kind = cfg["reference"]
-    if kind == "model_ad":
-        fusion = 2 * m["depth"] * transformer_layer(n, n, *args)
-        head = 2 * (4 * dim * 512 + 512 * 64 + 64 * 2)
-        head += 2 * 2 * (dim * 128 + 128 * 2)  # the discriminator, twice
-    elif kind == "transformer_res":
-        fusion = 2 * m["depth"] * transformer_layer(n, 2 * n, *args)
-        head = 2 * (2 * dim * 512 + 512 * 64 + 64 * 2)
-    else:
-        raise ValueError(f"no count for reference {kind!r}")
-    return {"conv": 2 * sum(convs), "stem": 2 * convs[0],
-            "rest": fusion + head}
+    PET pair; 'stem' is the two first convs (part of 'conv'). The count is
+    that of `models/<reference>.py`, by the configuration's `"reference"`:
+    a new architecture adds its own file and may use `snet` and
+    `transformer_layer` or count its whole model itself."""
+    ref = cfg["reference"]
+    name = f"{__package__}.models.{ref}"
+    if importlib.util.find_spec(name) is None:
+        raise ValueError(
+            f"no count for reference {ref!r}: add portbench/counts/models/"
+            f"{ref}.py with forward_per_pair(cfg, volume) -> "
+            "{'conv', 'stem', 'rest'}")
+    return importlib.import_module(name).forward_per_pair(cfg, volume)
 
 
 def train_per_pair(cfg: dict, volume) -> int:

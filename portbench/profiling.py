@@ -8,7 +8,9 @@ per-layer metrics read.
   cuDNN / cuBLAS, or PyTorch's own (`profile_train.py`'s `kernel_kind`);
 - each `transmf::<op>` call's kernels: a kernel is tied through its
   launch's correlation id to the runtime call, and that to the outermost
-  op of its thread whose interval holds it;
+  op of its thread whose interval holds it; the calls' least time
+  (`counts/kernels.py`) and device time, in all and by op (an op with no
+  count is left out of both and named on standard error);
 - host-to-device copies;
 - the breakdown: the device operations that took most time, and the
   device's idle time by the innermost host op running as each gap opened.
@@ -20,6 +22,7 @@ import bisect
 import collections
 import dataclasses
 import re
+import sys
 import time
 
 import torch
@@ -66,6 +69,10 @@ class Trace:
     by_kind_s: dict = dataclasses.field(default_factory=dict)
     op_least_s: float = 0.0  # sum over transmf:: calls of the least time
     op_device_s: float = 0.0  # sum of the device time of their kernels
+    # the same by op: {op: {"least_s", "device_s"}}
+    by_op: dict = dataclasses.field(default_factory=dict)
+    # ops with no count, left out of the sums: {op: {"calls", "device_s"}}
+    uncounted: dict = dataclasses.field(default_factory=dict)
     device_ops: list = dataclasses.field(default_factory=list)
     idle_gaps: list = dataclasses.field(default_factory=list)
 
@@ -102,17 +109,40 @@ def _profiled(run_units, units, activities, shapes: bool):
     return prof.profiler.kineto_results.events(), t1 - t0
 
 
-def trace(run_units, units: int) -> Trace:
+def add_op_calls(out: Trace, calls, log=sys.stderr) -> None:
+    """Add `calls`, (op, shapes, dtypes, device seconds) of each
+    `transmf::<op>` call, to `out`'s sums of least and device time, in all
+    and by op. A call of an op with no count goes to `out.uncounted`
+    instead, and each such op is named on `log` with its calls and device
+    ms."""
+    from .counts import kernels as counts
+
+    for name, shapes, dtypes, device_s in calls:
+        least = counts.least_time_s(name, shapes, dtypes)
+        if least is None:
+            u = out.uncounted.setdefault(name, {"calls": 0, "device_s": 0.0})
+            u["calls"] += 1
+            u["device_s"] += device_s
+            continue
+        out.op_least_s += least[0]
+        out.op_device_s += device_s
+        b = out.by_op.setdefault(name, {"least_s": 0.0, "device_s": 0.0})
+        b["least_s"] += least[0]
+        b["device_s"] += device_s
+    for name, u in out.uncounted.items():
+        print(f"uncounted transmf::{name} {u['calls']} "
+              f"{1e3 * u['device_s']!r}", file=log)
+
+
+def trace(run_units, units: int, log=sys.stderr) -> Trace:
     """Profile `run_units(units)` twice (each stretch runs that many steps
     or requests and ends in `torch.cuda.synchronize()`): once with the
     device alone traced, which costs the host next to nothing, for the busy
     and idle time, the launches and the device operations; once with the
     host's ops and their shapes too, for the kernel ops' least time and the
     host op behind each idle gap (that stretch runs slower: the profiler
-    records every host op)."""
+    records every host op). Ops with no count are named on `log`."""
     from torch.profiler import ProfilerActivity
-
-    from .counts import kernels as counts
 
     cuda = [ProfilerActivity.CUDA] if torch.cuda.is_available() else []
     events, window_s = _profiled(run_units, units,
@@ -180,14 +210,10 @@ def trace(run_units, units: int) -> Trace:
         op = outer[tid][i]
         if at.start_ns() <= op.start_ns() + op.duration_ns():
             device_s[id(op)] += e.duration_ns() * 1e-9
-    for evs in outer.values():
-        for op in evs:
-            if id(op) not in device_s:
-                continue
-            name = op.name().split("::", 1)[1].split(".")[0]
-            least, _ = counts.least_time_s(name, op.shapes(), op.dtypes())
-            out.op_least_s += least
-            out.op_device_s += device_s[id(op)]
+    add_op_calls(out, [(op.name().split("::", 1)[1].split(".")[0],
+                        op.shapes(), op.dtypes(), device_s[id(op)])
+                       for evs in outer.values() for op in evs
+                       if id(op) in device_s], log)
 
     # idle gaps by the innermost host op running when each gap opens, on
     # any thread (the backward runs on autograd's thread)

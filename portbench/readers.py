@@ -42,6 +42,21 @@ def kernels_roofline_pct(ctx):
     return 100.0 * t.op_least_s / t.op_device_s
 
 
+def op_roofline_pct(ctx, names):
+    """The named transmf:: ops' least time over their kernels' device time
+    (`profiling.Trace.by_op`): one kernel's share of its roofline, for a
+    reader `metrics/<kernel>_roofline.<kind>.py`. None where none of them
+    ran, or one of them has no count."""
+    t = traced(ctx)
+    if t is None or any(n in t.uncounted for n in names):
+        return None
+    ran = [t.by_op[n] for n in names if n in t.by_op]
+    device_s = sum(b["device_s"] for b in ran)
+    if device_s <= 0:
+        return None
+    return 100.0 * sum(b["least_s"] for b in ran) / device_s
+
+
 def per_unit_ms(seconds, ctx):
     t = traced(ctx)
     return None if t is None else 1e3 * seconds / t.units

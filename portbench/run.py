@@ -74,6 +74,7 @@ def execute(args, device="cuda", bench=None, cell_files=None,
         harness.require_cards(entry["chips"])
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    per_pair = getattr(model_counts, mix["flops"])(cfg, mix["volume"])
     drv = harness.kind(mix["kind"]).CellRun(cfg, mix, args.seed, device,
                                               limits)
     drv.setup()
@@ -86,7 +87,7 @@ def execute(args, device="cuda", bench=None, cell_files=None,
     if args.trace:
         from portbench import profiling
 
-        trace = profiling.trace(drv.run_units, mix["trace_units"])
+        trace = profiling.trace(drv.run_units, mix["trace_units"], log)
         phase("trace", log)
     peak = (torch.cuda.max_memory_allocated(device) if device == "cuda"
             else 0)
@@ -98,7 +99,6 @@ def execute(args, device="cuda", bench=None, cell_files=None,
     correct = failed == 0 and all(c["value"] <= c["limit"]
                                   for c in checks.values())
 
-    per_pair = getattr(model_counts, mix["flops"])(cfg, mix["volume"])
     if args.trace:
         ctx = Context(trace=trace, window_s=drv.window_s, units=drv.units,
                       pairs_per_unit=drv.pairs_per_unit, cfg=cfg, mix=mix,

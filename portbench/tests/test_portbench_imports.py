@@ -37,10 +37,17 @@ def test_a_run_loads_no_jax():
 
 
 def test_reference_loads_nothing_of_the_program():
-    mods = _modules_after(
-        "import portbench.reference.step, portbench.reference.model_ad,"
-        " portbench.reference.transformer_res, portbench.reference.augment,"
-        " portbench.counts.model, portbench.counts.kernels")
+    """Every module of the plain reference and of the counts, as found on
+    disk, so that a file a later cell adds is held to it too."""
+    found = [f"portbench.{d.replace('/', '.')}.{p.stem}"
+             for d in ("reference", "counts", "counts/models", "counts/ops")
+             for p in sorted((harness.HERE / d).glob("*.py"))
+             if p.stem != "__init__"]
+    assert {"portbench.reference.model_ad", "portbench.counts.kernels",
+            "portbench.counts.models.transformer_res"} <= set(found)
+    mods = _modules_after(f"import importlib; [importlib.import_module(m)"
+                          f" for m in {found!r}]")
+    assert set(found) <= mods
     tops = {m.split(".")[0] for m in mods}
     assert not tops & {"transmf_ad_tpu_torch", *harness.FORBIDDEN}
 
