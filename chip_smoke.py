@@ -52,7 +52,14 @@ before the final line:
             call. K13, the train step's augmentation (no TPU kernel: the
             JAX package's is XLA), at the cells' (6,182,218,182) x 2 on
             draws of every kind ("smem"), bit-identical over two calls,
-            and at a plane over the shared-memory limit ("global")
+            and at a plane over the shared-memory limit ("global"). K14,
+            swin_unetr's window attention, forward and backward, at each of
+            the 8 calls a train step of its cell makes each way (the four
+            stages' grids at batch 6, (6,91,109,91) with 3 heads to
+            (6,12,14,12) with 24, shift 0 and 3), the plain version one
+            sample at a time, at tests/test_torch_swin.py's tolerances; the
+            forward bit-identical over two calls; the 8 calls' kernel,
+            plain and bound times summed ("step")
 4. serving  full-width ModelAd (dim 128, depth 3, 4 heads x 32, mlp 512) in
             bfloat16, random weights and BN statistics from a seeded
             torch.Generator, answers 6 batch-8 requests of 91x109x91
@@ -100,7 +107,11 @@ before the final line:
             launched 6 times per step and K2 never; peak device memory; then
             the one-SGD-step check of phase 7 for transformer_res at 51x53x49
             with the flash gate lowered, so K11 and K12 are held inside a
-            real backward
+            real backward; then swin_unetr's train step (Swin UNETR's
+            encoder, feature size 48) at batch 6, 182x218x182: 2 warm-up
+            and 3 timed steps, K14's forward and backward each launched 8
+            times a step, all "mma", and no other model kernel; losses
+            finite, parameters move; peak device memory
 12. bf16 check  full-width ModelAd in bfloat16 on the card against the
             card in float32 (phase 7's weights-from-a-seed, batch 4,
             35x37x33): the eval forward's logits, d_mri, d_pet and one SGD
@@ -259,9 +270,11 @@ before the final line:
 The line before the last is a JSON object with one entry per kernel: `ms`,
 `plain_ms`, `bound_ms`, `bound_by` and `library_ms` belong to the bfloat16
 run at the first shape listed for the kernel (K1's full-resolution case is
-under `full_resolution`, its launch floor under `launch_floor_ms`),
+under `full_resolution`, its launch floor under `launch_floor_ms`; K14's
+other calls under their labels and their sum over a train step under
+`step`),
 `max_abs_err` is the largest over all its cases, `launches` its count over
-the six serving and train runs, the learning check, the two k-fold CLI
+the seven serving and train runs, the learning check, the two k-fold CLI
 runs of phase 14, the four CLI runs of phase 15, phase 16's bf16 runs,
 every rank of phase 17, phase 18's runs (a request of each loaded program
 at each batch, each sharded rank, the profiled fit) and every rank of
@@ -320,6 +333,12 @@ CHECK_BATCH, CHECK_VOLUME = 4, (35, 37, 33)
 # gate lowered to FLASH_CHECK_GATE keys on the card and on the CPU
 RES_CHECK_VOLUME, FLASH_CHECK_GATE = (51, 53, 49), 8
 FLASH_SHAPE = (6, 4, 1573, 32, 3146)  # batch, heads, queries, head dim, keys
+# swin_unetr's cell (patch 2, window 7, feature size 48): each stage's
+# token grid at FULL_VOLUME and its heads; block 1 of a stage shifts by 3;
+# K14 launches 8 times a train step each way (2 blocks x 4 stages)
+SWIN_STAGES = (((91, 109, 91), 3), ((46, 55, 46), 6), ((23, 28, 23), 12),
+               ((12, 14, 12), 24))
+SWIN_WINDOW, SWIN_SHIFT, SWIN_CALLS = 7, 3, 8
 # the train check's conditioning probe: CPU steps on inputs perturbed by a
 # relative CHECK_EPS (a few float32 ulps), and the weight of their spread
 CHECK_DRAWS, CHECK_EPS, CHECK_SLACK = 4, 1e-6, 3.0
@@ -382,14 +401,18 @@ RES_TRAIN_KERNELS = ("affine_act_pool", "stem_conv_stats", "stem_dw",
                      "affine_act_pool_bwd", "band_conv", "band_dw",
                      "flash_fwd", "flash_dq", "flash_dkv")
 ATTENTION_CALLS = 6  # per forward: depth 3, one per modality
-# the variant every launch of K1-K13 must take on the bfloat16 paths at the
+# swin_unetr runs K14 (window attention) and no other model kernel
+SWIN_TRAIN_KERNELS = ("window_attention_fwd", "window_attention_bwd")
+SWIN_TAG = "train, full resolution, swin_unetr"
+# the variant every launch of K1-K14 must take on the bfloat16 paths at the
 # models' widths and volumes: the tensor cores ("mma"), K4 / K7's 16-byte
 # groups ("vec"), K1's clusters and K13's plane in shared memory
 FAST = {"attention_fwd": "mma", "band_conv": "mma", "band_dw": "mma",
         "flash_fwd": "mma", "flash_dq": "mma", "flash_dkv": "mma",
         "stem_conv": "mma", "stem_conv_stats": "mma", "stem_dw": "mma",
         "affine_act_pool": "vec", "affine_act_pool_bwd": "vec",
-        "token_pool": "cluster", "augment": "smem"}
+        "token_pool": "cluster", "augment": "smem",
+        "window_attention_fwd": "mma", "window_attention_bwd": "mma"}
 
 
 def _median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -553,6 +576,15 @@ def _crossover_labels():
 
 
 CROSSOVER = _crossover_labels()
+
+
+def _swin_calls():
+    """(label, grid, heads, shift) of K14's calls a train step of
+    swin_unetr's cell, each way: stage by stage, shift 0 then SWIN_SHIFT."""
+    return [(f"stage {i + 1} ({FULL_BATCH},{','.join(map(str, grid))}) "
+             f"{heads} heads shift {shift}", grid, heads, shift)
+            for i, (grid, heads) in enumerate(SWIN_STAGES)
+            for shift in (0, SWIN_SHIFT)]
 
 
 def _kernel_cases(g):
@@ -1300,6 +1332,63 @@ def _kernel_cases(g):
         Case("augment", "(8,6,256,256) x2, a plane over the shared memory",
              aug, aug_plain, aug_in(8, (6, 256, 256)), *aug_tol, aug_ops,
              timed=False)]
+    # K14: swin_unetr's window attention at each call of its cell's train
+    # step (`_swin_calls`), forward and backward, on the card against the
+    # plain version run one sample at a time (stage 1's scores are 3.8 GB a
+    # sample in float32), its sums over the batch added in float64; the
+    # tolerances of tests/test_torch_swin.py's card test
+    from transmf_ad_tpu_torch.ops import window_attention as wa
+
+    full = (SWIN_WINDOW,) * 3
+    window_plain = _by_sample(wa.window_attention_reference, (0,))
+
+    def window_in(grid, heads, shift, bwd):
+        def make(dt):
+            c = heads * wa.HEAD_DIM
+            qkv = _randn(g, FULL_BATCH, *grid, 3 * c).to(dt)
+            bias = _randn(g, 3 * c, scale=0.5).to(dt)
+            table = _randn(g, wa.table_size(full), heads, scale=0.5)
+            window, sh = wa.window_size(grid, full, (shift,) * 3)
+            geo = ([*window], [*sh], [*full], wa.HEAD_DIM ** -0.5)
+            if not bwd:
+                return (qkv, bias, table, *geo)
+            out, lse = window_plain(qkv, bias, table, *geo)
+            return (qkv, bias, table, out, lse,
+                    _randn(g, *out.shape).to(dt), *geo)
+        return make
+
+    def window_bwd_plain(qkv, bias, table, out, lse, gg, *geo):
+        nw = lse.shape[0] // qkv.shape[0]
+        parts = [wa.window_attention_bwd_reference(
+            qkv[i:i + 1], bias, table, out[i:i + 1],
+            lse[i * nw:(i + 1) * nw], gg[i:i + 1], *geo)
+            for i in range(qkv.shape[0])]
+        dqkv, dbias, dtable = zip(*parts)
+        return (torch.cat(dqkv), torch.stack(dbias).double().sum(0).float(),
+                torch.stack(dtable).double().sum(0).float())
+
+    def window_ops(qkv, bias, table, *rest):  # QK^T and PV, padded rows too
+        window = rest[-4]
+        windows = qkv.shape[0] * wa.window_count(qkv.shape[1:4], window)
+        n = math.prod(window)
+        return 4 * windows * table.shape[1] * n * n * wa.HEAD_DIM, "mma"
+
+    def window_bwd_ops(*args):  # S and dP twice, dQ, dK, dV: 7 products
+        ops, kind = window_ops(*args)
+        return 7 * ops // 2, kind
+
+    fwd_tol = ([_elem(1e-5, 1e-5)] * 2,
+               [_elem(BF16_RTOL, 1e-4), _elem(1e-5, 1e-5)])
+    bwd_tol = ([_elem(1e-5, 1e-5), _sums(1e-4), _sums(1e-4)],
+               [_elem(BF16_RTOL, 1e-4), _sums(1e-2), _sums(1e-2)])
+    for label, grid, heads, shift in _swin_calls():
+        cases += [
+            Case("window_attention_fwd", label, wa.window_attention_op,
+                 window_plain, window_in(grid, heads, shift, False),
+                 *fwd_tol, window_ops, repeat=True, record=label),
+            Case("window_attention_bwd", label, wa.window_attention_bwd_op,
+                 window_bwd_plain, window_in(grid, heads, shift, True),
+                 *bwd_tol, window_bwd_ops, record=label)]
     return cases
 
 
@@ -1468,7 +1557,26 @@ def check_kernels(results, only=()):
                     r["launch_floor_events_ms"] = floor["events"]
             del args, outs
             torch.cuda.empty_cache()
+    _window_step(results)
     return times
+
+
+def _window_step(results):
+    """K14's bfloat16 kernel, plain and bound times summed over the calls
+    of a train step of swin_unetr's cell (`_swin_calls`), each way:
+    printed, and kept under the kernel's "step" entry."""
+    labels = [label for label, *_ in _swin_calls()]
+    for name in SWIN_TRAIN_KERNELS:
+        r = results.get(name, {})
+        parts = [r] + [r[label] for label in labels[1:] if label in r]
+        if "ms" not in r or len(parts) != len(labels):
+            continue
+        r["step"] = {k: sum(p[k] for p in parts)
+                     for k in ("ms", "plain_ms", "bound_ms")}
+        print(f"[kernel] {name}: the {len(labels)} calls of a train step of "
+              f"swin_unetr, batch {FULL_BATCH}, bfloat16: kernel "
+              f"{r['step']['ms']:.4f} ms, plain {r['step']['plain_ms']:.4f} "
+              f"ms, bound {r['step']['bound_ms']:.4f} ms", flush=True)
 
 
 @torch.no_grad()
@@ -1624,7 +1732,7 @@ def flash_cross_check(reference):
 
 
 def reset_counts():
-    """Set every launch count (K1-K13) to 0, after checking that K1
+    """Set every launch count (K1-K14) to 0, after checking that K1
     launched no "column" since the last reset: from phase 4 on, every K1
     launch is at the models' width, which the rule sends to "cluster"."""
     from transmf_ad_tpu_torch.ops import TOKEN_POOL, reset_launch_counts
@@ -1636,8 +1744,8 @@ def reset_counts():
 
 
 def _kernels():
-    """K1-K12, then K13, the train step's augmentation (no op, so not in
-    `ops.KERNELS`)."""
+    """K1-K12 and K14 (`ops.KERNELS`), then K13, the train step's
+    augmentation (no op, so not in `ops.KERNELS`)."""
     from transmf_ad_tpu_torch.data.transforms import AUGMENT
     from transmf_ad_tpu_torch.ops import KERNELS
 
@@ -1721,10 +1829,12 @@ def train(card, tag="train", batch_size=BATCH, volume=VOLUME,
         raise AssertionError(f"{tag}: unchanged after {len(batches)} steps: "
                              f"{still}")
     steady = times[warmup:]
-    print(f"[{tag}] {type(model).__name__} dim=128 depth=3 bf16 (f32 master "
+    widths = ("feature size 48, heads 3-24, window 7" if model_name ==
+              "swin_unetr" else "dim=128 depth=3, head dropout 0.5")
+    print(f"[{tag}] {type(model).__name__} {widths}, bf16 (f32 master "
           f"weights), "
-          f"batch {batch_size} x {volume} MRI+PET, augmentation on, head "
-          f"dropout 0.5, Adam 1e-4: {len(steady)} steps after {warmup} "
+          f"batch {batch_size} x {volume} MRI+PET, augmentation on, "
+          f"Adam 1e-4: {len(steady)} steps after {warmup} "
           f"warm-up: {batch_size * len(steady) / sum(steady):.2f} vols/s "
           f"({1e3 * np.median(steady):.2f} ms/step median) on {card}; "
           f"launches {launches}, variants {took}", flush=True)
@@ -1734,6 +1844,17 @@ def train(card, tag="train", batch_size=BATCH, volume=VOLUME,
     print(f"[{tag}] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     return launches
+
+
+def swin_train(card):
+    """Phase 11's last part: swin_unetr's train step at batch 6,
+    182x218x182, counted from zero; K14's forward and backward launched
+    SWIN_CALLS times a step each, of the "mma" variant, and no other model
+    kernel."""
+    return train(card, SWIN_TAG, FULL_BATCH, FULL_VOLUME, FULL_TRAIN_WARMUP,
+                 FULL_TRAIN_STEPS, SWIN_TRAIN_KERNELS, "swin_unetr",
+                 {k.name: SWIN_CALLS if k.name in SWIN_TRAIN_KERNELS else 0
+                  for k in _kernels() if k.name != "augment"})
 
 
 def sgd_step(model, device, batch, adversarial=True, dtype=torch.float32,
@@ -4130,6 +4251,8 @@ def main(argv=None) -> int:
     lap("transformer_res train")
     train_check("transformer_res", RES_CHECK_VOLUME)
     lap("transformer_res train check")
+    swin_trained = swin_train(card)
+    lap("swin_unetr train")
     bf16_check()
     bf16_check(band_min_voxels=0)
     bf16_check("transformer_res", RES_CHECK_VOLUME)
@@ -4159,6 +4282,7 @@ def main(argv=None) -> int:
             "train, full resolution": full_trained,
             tag: res_serving,
             "train, full resolution, transformer_res": res_trained,
+            SWIN_TAG: swin_trained,
             "learning check": learned, "k-fold CLI": kfold,
             "k-fold CLI, CNN": kfold_cnn, **zoo, "remat": remat,
             **data_parallel, **artifact, **model_axis}

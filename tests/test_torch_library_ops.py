@@ -1,8 +1,8 @@
 """The kernels of the PyTorch/CUDA port as registered `torch.library` ops.
 
-Every kernel K1-K12 is reached through one op of the `transmf` namespace:
-the dispatcher picks the kernel for CUDA tensors and the plain version for
-CPU tensors, and FakeTensors see the op's fake implementation.
+Every kernel K1-K12 and K14 is reached through one op of the `transmf`
+namespace: the dispatcher picks the kernel for CUDA tensors and the plain
+version for CPU tensors, and FakeTensors see the op's fake implementation.
 `torch.library.opcheck` holds, per op and dtype, the schema (no output
 aliases an input), the fake implementation against the plain version
 (shape, dtype, strides), the autograd registration and the op under
@@ -21,6 +21,7 @@ import torch
 from transmf_ad_tpu_torch import _build
 from transmf_ad_tpu_torch.ops import (band_conv, flash_attention as fa,
                                       pool3d, pooling, stem)
+from transmf_ad_tpu_torch.ops import window_attention as wa
 
 OPS_DIR = pathlib.Path(pool3d.__file__).parent
 BF16, F32 = torch.bfloat16, torch.float32
@@ -53,6 +54,12 @@ def _cases(g, dtype, device="cpu", pools=POOLS):
     gy5, y55 = t(2, 4, 5, 6, 5), t(2, 4, 5, 6, 5)
     c5, c5b = t(5, f32=True), t(5, f32=True, scale=0.1)
     yp = t(2, 5, 4, 7, 3, grad=True)
+    # K14: a 4x5x3 grid, window 3 (z clamped: no shift there), 2 heads
+    geo = ([3, 3, 3], [1, 1, 0], [3, 3, 3], 0.25)
+    qkv, qkv_b = t(2, 4, 5, 3, 96, grad=True), t(96, grad=True, scale=0.5)
+    table = t(125, 2, f32=True, grad=True, scale=0.5)
+    w_out, w_lse = wa.window_attention_reference(
+        *(a.detach().cpu() for a in (qkv, qkv_b, table)), *geo)
     cases = [
         (pooling.token_pool_op, (t(2, 5, 8, grad=True), t(2, 5, 8,
                                                           grad=True))),
@@ -69,6 +76,10 @@ def _cases(g, dtype, device="cpu", pools=POOLS):
         (band_conv.band_conv_stats_op, (x5, w5)),
         (band_conv.band_dw_op, (x5.detach(), gy5)),
         (band_conv.band_dw_op, (x5.detach(), gy5, y55, c5, c5b)),
+        (wa.window_attention_op, (qkv, qkv_b, table, *geo)),
+        (wa.window_attention_bwd_op,
+         (qkv.detach(), qkv_b.detach(), table.detach(), w_out.to(device),
+          w_lse.to(device), t(*w_out.shape), *geo)),
     ]
     for mode, lanes in pools:
         n = 7 * 3 if lanes else 3
@@ -91,12 +102,14 @@ def _ids():
 
 
 def test_every_kernel_has_one_op():
-    """Thirteen ops, one namespace: K8 with and without its sums, the rest
-    one a kernel; each module's kernels are reached through them."""
+    """Fifteen ops, one namespace: K8 with and without its sums, K14's
+    forward and backward, the rest one a kernel; each module's kernels are
+    reached through them."""
     assert sorted(op._opname for op in _build.OPS) == sorted([
         "token_pool", "attention", "stem_conv", "affine_act_pool",
         "stem_conv_stats", "stem_dw", "affine_act_pool_bwd", "band_conv",
-        "band_conv_stats", "band_dw", "flash_fwd", "flash_dq", "flash_dkv"])
+        "band_conv_stats", "band_dw", "flash_fwd", "flash_dq", "flash_dkv",
+        "window_attention", "window_attention_bwd"])
     assert {op.namespace for op in _build.OPS} == {"transmf"}
     assert {op._opname for op, _ in _cases(torch.Generator(), F32)} == {
         op._opname for op in _build.OPS}

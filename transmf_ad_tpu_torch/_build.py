@@ -12,10 +12,10 @@ the plain PyTorch versions.
 Each kernel is described by a `Kernel`: its C entry, its argument types, the
 source it lives in, the TPU kernel it replaces, and a plain-integer count of
 its launches, which rises by one per launch and nowhere else. A kernel with
-more than one variant (K2, K6, K8-K12: tensor cores or CUDA cores, by dtype
-and shape) also counts its launches per variant.
+more than one variant (K2, K6, K8-K12, K14: tensor cores or CUDA cores, by
+dtype and shape) also counts its launches per variant.
 
-A kernel of the model (K1-K12) is reached only through a registered op in
+A kernel of a model (K1-K12, K14) is reached only through a registered op in
 the `transmf` namespace (`define_op`): the dispatcher runs the op's CUDA
 implementation (checks, variant, `Kernel.launch`) for CUDA tensors and its
 plain PyTorch version for CPU tensors, and FakeTensors (`torch.export`,

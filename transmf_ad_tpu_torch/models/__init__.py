@@ -8,7 +8,9 @@ and Mnet get none of them. Then every keyword the class's constructor does
 not take is dropped, so that callers can pass one config to every model.
 ADVIT and Mnet take the padded volume's `input_shape`, which fixes their
 token grid and head width (the JAX modules infer both from the first
-input). All eight models of the JAX registry are ported. `ADVERSARIAL`
+input). All eight models of the JAX registry are ported; 'swin_unetr'
+(`SwinUNETRClassifier`, Swin UNETR's encoder as an MRI + PET classifier)
+has no JAX counterpart and gets none of the fusion keywords. `ADVERSARIAL`
 lists the models that return (logits, d_mri, d_pet) triples, the others
 return logits; `SINGLE_MODALITY` those that take the MRI alone.
 """
@@ -19,6 +21,7 @@ import inspect
 
 from .advit import ADVIT, ViTEncoder  # noqa: F401
 from .misepynet import MiSePyNet, Mnet, SliceCNN, SpatialCNN  # noqa: F401
+from .swin_unetr import SwinUNETRClassifier  # noqa: F401
 from .transmf import (  # noqa: F401
     ModelAd,
     ModelCNN,
@@ -34,7 +37,8 @@ SINGLE_MODALITY = {"single"}
 _REGISTRY = {"single": ModelSingle, "cnn": ModelCNN,
              "transformer": ModelTransformer,
              "transformer_res": ModelTransformerRes, "cnn_ad": ModelCNNAd,
-             "ad": ModelAd, "advit": ADVIT, "mnet": Mnet}
+             "ad": ModelAd, "advit": ADVIT, "mnet": Mnet,
+             "swin_unetr": SwinUNETRClassifier}
 _FUSION_MODELS = {"transformer", "transformer_res", "ad"}
 
 

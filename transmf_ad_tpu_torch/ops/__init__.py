@@ -20,17 +20,19 @@ from .flash_attention import flash_attention as _flash_attention
 from .pool3d import AFFINE_ACT_POOL, AFFINE_ACT_POOL_BWD
 from .pooling import TOKEN_POOL
 from .stem import STEM_CONV, STEM_CONV_STATS, STEM_DW
+from .window_attention import WINDOW_BWD, WINDOW_FWD
 
-# K1-K12, in that order
+# K1-K12, in that order, then K14's forward and backward
 KERNELS = (TOKEN_POOL, ATTENTION, STEM_CONV, AFFINE_ACT_POOL, STEM_CONV_STATS,
            STEM_DW, AFFINE_ACT_POOL_BWD, BAND_CONV, BAND_DW, FLASH_FWD,
-           FLASH_DQ, FLASH_DKV)
+           FLASH_DQ, FLASH_DKV, WINDOW_FWD, WINDOW_BWD)
 
 
 def reset_launch_counts() -> None:
-    """Set the launch counts of K1-K12 and of K13, the train step's
+    """Set the launch counts of KERNELS and of K13, the train step's
     augmentation (`data/transforms.py`; no op, so not in KERNELS), to 0.
-    K13 is imported here, not with the ops: serving loads no data module."""
+    K13 is imported here, not with the ops: serving loads no data
+    module."""
     from ..data.transforms import AUGMENT
 
     for k in (*KERNELS, AUGMENT):
